@@ -1,0 +1,264 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (matrix_fhe_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the four CUDA kernels from matrix_fhe_tpu_torch/csrc/, drives the
+ref-preset HE path through its public entry points (init_he_backend on
+"cuda", keygen, roundtrip, and encode -> encrypt_pair ->
+decrypt_and_decode), checks each kernel bit for bit against its plain
+PyTorch version at the shapes that path gives it, and times both.  Fails
+(nonzero exit, no result line) without a CUDA device, on a build or launch
+error, on any disagreement, or when the ref roundtrip error reaches 1e-4.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+TOL = 1e-4                 # src/main.cu:150, bench.py:310
+CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call from CUDA events, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def random_residues(moduli, shape, gen) -> torch.Tensor:
+    q = torch.tensor(moduli, dtype=torch.int64, device="cuda")
+    q = q.reshape((len(moduli),) + (1,) * len(shape))
+    x = torch.randint(0, 1 << 62, (len(moduli),) + tuple(shape),
+                      generator=gen, device="cuda", dtype=torch.int64)
+    return x % q
+
+
+def max_abs_diff(a, b) -> int:
+    """Largest integer difference over matching tensors (0 = bit-exact)."""
+    if isinstance(a, (tuple, list)):
+        return max(max_abs_diff(x, y) for x, y in zip(a, b))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"shape/dtype mismatch {a.shape} {b.shape}")
+    return int((a - b).abs().max())
+
+
+def check_kernel(name, key, source, replaces, kernel_fn, plain_fn, reps=5):
+    """Hold one kernel against its plain version (bit-exact) and time both;
+    `key` names its launch counter."""
+    got = kernel_fn()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    err = max_abs_diff(got, want)
+    ms = cuda_ms(kernel_fn, reps)
+    plain_ms = cuda_ms(plain_fn, max(1, reps // 2))
+    log(f"[kernel] {name}: max_abs_err={err} kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms")
+    if err != 0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return {"name": name, "key": key, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def kernel_checks(ctx, gen):
+    """K1-K4 against their plain versions at the ref path's shapes."""
+    from matrix_fhe_tpu_torch.ops.fpmatmul import (fp_cmatmul_kernel,
+                                                   fp_cmatmul_plain)
+    p = ctx.params
+    W, n = p.phi, p.n
+    wt, xntt = ctx.wt, ctx.xntt
+    rows = []
+    d_w = random_residues(p.moduli, (W, n * n), gen)
+    rows.append(check_kernel(
+        "stage (K1, W-CRT forward)", "stage",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
+        lambda: wt._fwd.kernel(d_w), lambda: wt._fwd.plain(d_w)))
+    d_x = random_residues(p.moduli, (W, n), gen)
+    rows.append(check_kernel(
+        "stage (K1, X-NTT)", "stage", "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
+        lambda: xntt._fwd.kernel(d_x), lambda: xntt._fwd.plain(d_x)))
+    a_rows = random_residues(p.moduli, (W * n, n), gen)
+    s_mont = random_residues(p.moduli, (W, n), gen)
+    rows.append(check_kernel(
+        "ntt_mul_ntt (K2)", "ntt_mul_ntt",
+        "matrix_fhe_tpu_torch/csrc/ntt_mul_ntt.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1851",
+        lambda: xntt._mul_s.kernel(a_rows, s_mont),
+        lambda: xntt._mul_s.plain(a_rows, s_mont)))
+    x_ev = random_residues(p.moduli, (W, 2 * n * n), gen)
+    rows.append(check_kernel(
+        "inv_compose (K3)", "inv_compose",
+        "matrix_fhe_tpu_torch/csrc/inv_compose.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1731",
+        lambda: wt._inv_compose.kernel(x_ev),
+        lambda: wt._inv_compose.plain(x_ev)))
+    for label, fp, k, m in (("sigma sandwich", ctx.encoder._fp_vi, n, W * n),
+                            ("W-DFT", wt._fp_dft, W, n * n)):
+        xr, xi = (torch.randint(-(1 << 37), 1 << 37, (k, m), generator=gen,
+                                device="cuda", dtype=torch.int64)
+                  for _ in range(2))
+        rows.append(check_kernel(
+            f"fp_cmatmul (K4, {label})", "fp_cmatmul",
+            "matrix_fhe_tpu_torch/csrc/fp_cmatmul.cu",
+            "matrix_fhe_tpu/ops/fpmatmul.py:129",
+            lambda fp=fp, xr=xr, xi=xi: fp_cmatmul_kernel(fp.tr, fp.ti, xr, xi),
+            lambda fp=fp, xr=xr, xi=xi: fp_cmatmul_plain(fp.tr, fp.ti, xr, xi)))
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        log("chip_smoke: CUDA is not available")
+        return 2
+    from matrix_fhe_tpu_torch import init_he_backend
+    from matrix_fhe_tpu_torch.config import get_params
+    from matrix_fhe_tpu_torch.ops import _backend as be
+
+    card = subprocess.run(CARD_QUERY, check=True, capture_output=True,
+                          text=True).stdout.strip()
+    log(f"[card] {card}")
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    be.library()
+    log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+
+    p = get_params("ref")
+    t0 = time.perf_counter()
+    ctx = init_he_backend("ref", device="cuda")
+    log(f"[setup] ref context (tables on the card) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    rows = kernel_checks(ctx, gen)
+
+    # -- the main path, counted ---------------------------------------------
+    be.reset_launches()
+    ctx = init_he_backend("ref", device="cuda")
+    t0 = time.perf_counter()
+    sk = ctx.generate_secret_key()
+    torch.cuda.synchronize()
+    log(f"[main] keygen in {time.perf_counter() - t0:.2f} s")
+    r = np.random.default_rng(7)
+    re = r.uniform(-4, 4, size=(p.phi, p.n, p.n))
+    im = r.uniform(-4, 4, size=(p.phi, p.n, p.n))
+    re_t = torch.from_numpy(re).cuda()
+    im_t = torch.from_numpy(im).cuda()
+    t0 = time.perf_counter()
+    dr, di = ctx.roundtrip(re_t, im_t, sk)
+    torch.cuda.synchronize()
+    err_rt = float(torch.hypot(dr - re_t, di - im_t).max())
+    log(f"[main] roundtrip (bench input) first call "
+        f"{time.perf_counter() - t0:.2f} s, max err {err_rt:.3e}")
+
+    n2 = p.n * p.n
+    ell = np.arange(p.phi, dtype=np.float64)[:, None]
+    idx = np.arange(n2, dtype=np.float64)[None, :]
+    re2 = torch.from_numpy((ell + idx * 1e-5).reshape(p.phi, p.n, p.n)).cuda()
+    im2 = torch.from_numpy((ell - idx * 1e-5).reshape(p.phi, p.n, p.n)).cuda()
+    pr, pi = ctx.batched_encoder.encode_to_wntt_eval(re2, im2)
+    ct_re, ct_im = ctx.encrypt_pair(pr, pi, sk)
+    d2r, d2i = ctx.decrypt_and_decode(ct_re, ct_im, sk)
+    torch.cuda.synchronize()
+    launches = dict(be.LAUNCHES)
+    err_steps = float(torch.hypot(d2r - re2, d2i - im2).max())
+    log(f"[main] step API (examples/main.py input) max err {err_steps:.3e}")
+    log(f"[main] launches over keygen + roundtrip + step API: {launches}")
+    for err, what in ((err_rt, "roundtrip"), (err_steps, "step API")):
+        if not (np.isfinite(err) and err < TOL):
+            raise AssertionError(f"ref {what} max err {err} >= {TOL}")
+    for row in rows:
+        row["launches"] = launches.get(row.pop("key"), 0)
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was not launched on the path")
+    for out in (dr, di, d2r, d2i):
+        if out.shape != (p.phi, p.n, p.n) or not torch.isfinite(out).all():
+            raise AssertionError("decoded output has the wrong shape or "
+                                 "non-finite values")
+
+    # -- roundtrip time and memory ------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    ctx.roundtrip(re_t, im_t, sk)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(7):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ctx.roundtrip(re_t, im_t, sk)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    rt_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[perf] ref roundtrip median {rt_ms:.3f} ms over {len(times)} runs "
+        f"(min {min(times):.3f}, max {max(times):.3f}); "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB")
+
+    # -- zero-noise identity at ref -----------------------------------------
+    ctx0 = init_he_backend("ref", zero_noise=True, device="cuda")
+    m_re = random_residues(p.moduli, (p.phi, p.n, p.n), gen)
+    m_im = random_residues(p.moduli, (p.phi, p.n, p.n), gen)
+    c_re, c_im = ctx0.encrypt_pair(m_re, m_im, sk)
+    e_re, e_im = ctx0.decrypt_pair_to_eval(c_re, c_im, sk)
+    if not (torch.equal(e_re, m_re) and torch.equal(e_im, m_im)):
+        raise AssertionError("zero-noise ref encrypt -> decrypt is not the identity")
+    log("[check] zero-noise ref encrypt -> decrypt identity: exact")
+
+    # -- a small input against the plain (CPU) path --------------------------
+    ps = get_params("small")
+    ctx_gpu = init_he_backend("small", device="cuda")
+    ctx_cpu = init_he_backend("small", device="cpu")
+    rs = np.random.default_rng(3)
+    sr = torch.from_numpy(rs.uniform(-4, 4, size=(ps.phi, ps.n, ps.n)))
+    si = torch.from_numpy(rs.uniform(-4, 4, size=(ps.phi, ps.n, ps.n)))
+    g = ctx_gpu.roundtrip(sr.cuda(), si.cuda(), ctx_gpu.generate_secret_key())
+    c = ctx_cpu.roundtrip(sr, si, ctx_cpu.generate_secret_key())
+    if not (torch.equal(g[0].cpu(), c[0]) and torch.equal(g[1].cpu(), c[1])):
+        raise AssertionError("small roundtrip on the card differs from the CPU path")
+    log("[check] small roundtrip: card == CPU plain path, bit for bit")
+
+    log("[summary] " + json.dumps({
+        "ref_roundtrip_ms": rt_ms, "ref_roundtrip_err": err_rt,
+        "ref_step_api_err": err_steps, "max_memory_allocated": peak}))
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

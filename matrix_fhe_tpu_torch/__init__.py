@@ -1,0 +1,39 @@
+"""matrix_fhe_tpu_torch — the Matrix-FHE framework on PyTorch and CUDA.
+
+The PyTorch port of matrix_fhe_tpu for NVIDIA Hopper (H100).  It packs
+phi(p) = 512 complex 64x64 matrices into one RLWE ciphertext pair over an
+11-limb RNS chain, like the JAX package, which stays the reference: each
+function here computes what its counterpart there computes, held bit for
+bit by tests/test_torch_*.py.
+
+  * Residues are int64 tensors of canonical values (< q < 2^56) in the
+    limb-major [L, W, n, n] layout.
+  * The exact modular matmuls (W-CRT, X-NTT, the fused NTT-multiply-iNTT
+    and the fused inverse + CRT compose) and the exact fixed-point complex
+    matmul are hand-written CUDA kernels (csrc/), each with a plain PyTorch
+    version beside it: a CPU tensor takes the plain version, a CUDA tensor
+    the kernel.
+  * A context lives on one device: init_he_backend(name, device=...).
+
+The package imports torch, numpy and the standard library, never jax.
+"""
+
+from .config import GLParams, get_params, REF_PARAMS_NAME  # noqa: F401
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "Ciphertext": ".models.he",
+    "SecretKey": ".models.he",
+    "HEContext": ".models.he",
+    "init_he_backend": ".models.he",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        mod = importlib.import_module(_LAZY[name], __name__)
+        return getattr(mod, name)
+    raise AttributeError(name)

@@ -1,0 +1,60 @@
+"""JAX package state -> port state.
+
+Turns the uint64 arrays of matrix_fhe_tpu objects (secret keys,
+ciphertexts, tables) into the port's int64 tensors on a given device, so
+that both packages can compute on the same key and ciphertexts.  Objects
+are read through their attributes and np.asarray, so this module does not
+import jax.  Residues are canonical (< 2^56), so the uint64 -> int64
+reinterpretation keeps every value.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .models.he import Ciphertext, SecretKey
+
+
+def residues(x, device="cpu") -> torch.Tensor:
+    """uint64 residues (numpy or jax array) -> int64 tensor on `device`."""
+    arr = np.ascontiguousarray(np.asarray(x))
+    if arr.dtype == np.uint64:
+        if arr.size and int(arr.max()) >= 1 << 63:
+            raise ValueError("value >= 2^63 is not a canonical residue")
+        arr = arr.view(np.int64)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def secret_key(sk, device="cpu") -> SecretKey:
+    """matrix_fhe_tpu SecretKey -> port SecretKey (s_mont [L, W, n])."""
+    return SecretKey(residues(sk.s_mont, device))
+
+
+def ciphertext(ct, device="cpu") -> Ciphertext:
+    """matrix_fhe_tpu Ciphertext -> port Ciphertext (b, a) [L, W, n, n]."""
+    return Ciphertext(b=residues(ct.b, device), a=residues(ct.a, device))
+
+
+def tables(t, device="cpu") -> dict:
+    """Every field of a GLTables (either package's) as a tensor on
+    `device`: uint64 tables -> int64, other arrays keep their dtype,
+    tuples of ints -> int64 tensors; `params` is passed through."""
+    out = {}
+    for f in dataclasses.fields(t):
+        v = getattr(t, f.name)
+        if f.name == "params":
+            out[f.name] = v
+        elif isinstance(v, np.ndarray) and v.dtype == np.uint64:
+            out[f.name] = torch.from_numpy(
+                np.ascontiguousarray(v).view(np.int64).copy()).to(device)
+        elif isinstance(v, np.ndarray):
+            out[f.name] = torch.from_numpy(v.copy()).to(device)
+        elif isinstance(v, tuple):
+            out[f.name] = torch.tensor([int(x) for x in v], dtype=torch.int64,
+                                       device=device)
+        else:
+            out[f.name] = int(v)
+    return out

@@ -1,0 +1,62 @@
+"""Batched encoder: W complex matrices <-> W-CRT-eval packed plaintext.
+
+Counterpart of matrix_fhe_tpu/models/batched_encoder.py on int64 residues,
+with the JAX package's fast route as the only route (encode_pair /
+decode_pair there):
+
+  encode: XY-IDFT sandwich (K4) -> W-IDFT (K4) -> quantize on the words
+          -> mod-q W-CRT forward (K1)
+  decode: scaled W-CRT inverse fused with the CRT compose (K3) -> W-DFT
+          (K4) -> XY-DFT sandwich (K4) -> one f64 reconstruction
+
+Layout is limb-major [L, W, n, n].
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..config import GLParams
+from ..ops.wcrt import WTransform
+from ..tables import GLTables, build_tables
+from .encoder import Encoder
+
+
+class BatchedEncoder:
+    def __init__(self, params: GLParams, tables: GLTables | None = None,
+                 wt: WTransform | None = None, device="cpu"):
+        t = tables or build_tables(params)
+        self.params = params
+        self.encoder = Encoder(params, t, device=device)
+        self.wt = wt or WTransform(params, t, device=device)
+
+    def encode_to_wntt_eval(self, m_re: torch.Tensor, m_im: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[W, n, n] f64 pair -> ([L, W, n, n], [L, W, n, n]) int64."""
+        W = m_re.shape[0]
+        wr, wi, e = self.encoder.idft2_words(m_re, m_im)
+        flat_r = tuple(w.reshape(W, -1) for w in wr)
+        flat_i = tuple(w.reshape(W, -1) for w in wi)
+        wr2, wi2, e2 = self.wt.dft_inverse_words_w(flat_r, flat_i, e)
+        rr, ri = self.encoder.quantize_words(wr2, wi2, e2)
+        shape = (rr.shape[0],) + tuple(m_re.shape)
+        return (self.wt.forward(rr.reshape(shape)),
+                self.wt.forward(ri.reshape(shape)))
+
+    def decode_from_wntt_eval(self, ev_re: torch.Tensor, ev_im: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Inverse of encode_to_wntt_eval: [L, W, n, n] int64 pair ->
+        [W, n, n] f64 pair."""
+        both = torch.stack([ev_re, ev_im], dim=2)             # [L, W, 2, n, n]
+        f2 = self.wt.inverse_scaled_compose(both, self.params.delta)
+        fr, fi = f2[:, 0], f2[:, 1]
+        wr, wi, e = self.wt.dft_forward_words(fr, fi)
+        wr = tuple(w.reshape(fr.shape) for w in wr)
+        wi = tuple(w.reshape(fr.shape) for w in wi)
+        return self.encoder.dft2_words_in(wr, wi, e)
+
+    # the JAX package's names for its fast route
+    encode_pair = encode_to_wntt_eval
+    decode_pair = decode_from_wntt_eval

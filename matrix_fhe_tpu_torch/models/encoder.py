@@ -1,0 +1,126 @@
+"""Single-lane sigma-embedding encoder (CKKS-style, power-of-5 Vandermonde).
+
+Counterpart of matrix_fhe_tpu/models/encoder.py.  A 64x64 complex message
+is mapped to XY-coefficient space by V^-1 M V^-T (encoder.cu:329-501).  The
+port runs the JAX package's words-chained route: both halves of each
+sandwich are exact fixed-point matmuls (kernel K4) linked by exact
+integer shift-rounds, the encode quantize works on the words, and decode
+reconstructs f64 once at the end.  The f64 `idft2` / `dft2` are the plain
+complex128 sandwiches, kept for tests.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..config import GLParams
+from ..ops.ddfloat import words_shr_round
+from ..ops.fpmatmul import ExactComplexMatmul
+from ..ops.modmath import moduli_col
+from ..tables import GLTables, build_tables
+
+F64 = torch.float64
+
+
+def _perm_words(words, f):
+    return tuple(f(w) for w in words)
+
+
+class Encoder:
+    """sigma-embedding over a batch of n x n complex matrices [W, n, n]."""
+
+    def __init__(self, params: GLParams, tables: GLTables | None = None,
+                 device="cpu"):
+        t = tables or build_tables(params)
+        self.params = params
+        self._fp_v = ExactComplexMatmul(t.enc_v, device)
+        self._fp_vi = ExactComplexMatmul(t.enc_v_inv, device)
+        self._v = torch.from_numpy(t.enc_v).to(device)
+        self._vi = torch.from_numpy(t.enc_v_inv).to(device)
+
+    # -- words-chained transforms ------------------------------------------
+
+    @staticmethod
+    def _sandwich_words_tail(fp, wr, wi, e1, W, n):
+        """Second half of a V (..) V^T sandwich on the words of the first:
+        lane reorder (W, j) -> (W, i'), chained matmul, [W, n, n] reorder."""
+        def perm1(x):
+            return x.reshape(n, W, n).permute(2, 1, 0).reshape(n, -1)
+
+        ur, ui, e2 = fp.call_words_w(_perm_words(wr, perm1),
+                                     _perm_words(wi, perm1), e1)
+
+        def perm2(x):
+            return x.reshape(n, W, n).permute(1, 2, 0)
+
+        return _perm_words(ur, perm2), _perm_words(ui, perm2), e2
+
+    def idft2_words(self, m_re: torch.Tensor, m_im: torch.Tensor):
+        """V^-1 M V^-T of [W, n, n] f64 messages as words ([W, n, n]
+        planes) and their scale."""
+        W, n = m_re.shape[0], m_re.shape[-1]
+        mr = m_re.to(F64).transpose(0, 1).reshape(n, -1)
+        mi = m_im.to(F64).transpose(0, 1).reshape(n, -1)
+        wr, wi, e1 = self._fp_vi.call_words(mr, mi)
+        return self._sandwich_words_tail(self._fp_vi, wr, wi, e1, W, n)
+
+    def dft2_words_in(self, words_r, words_i, e_scale):
+        """V E V^T of words ([W, n, n] planes) -> the final f64 pair."""
+        fp = self._fp_v
+        W, n = words_r[0].shape[0], words_r[0].shape[-1]
+
+        def perm0(x):
+            return x.transpose(0, 1).reshape(n, -1)
+
+        ur, ui, e1 = fp.call_words_w(_perm_words(words_r, perm0),
+                                     _perm_words(words_i, perm0), e_scale)
+        ur, ui, e2 = self._sandwich_words_tail(fp, ur, ui, e1, W, n)
+        return (ExactComplexMatmul.words_to_f64(ur, e2),
+                ExactComplexMatmul.words_to_f64(ui, e2))
+
+    # -- f64 reference sandwiches (tests) ----------------------------------
+
+    def idft2(self, m_re, m_im) -> Tuple[torch.Tensor, torch.Tensor]:
+        """V^-1 @ M @ (V^-1)^T in complex128 (encoder.cu:460-467)."""
+        m = torch.complex(m_re.to(F64), m_im.to(F64))
+        out = self._vi @ m @ self._vi.T
+        return out.real, out.imag
+
+    def dft2(self, e_re, e_im) -> Tuple[torch.Tensor, torch.Tensor]:
+        """V @ E @ V^T in complex128 (encoder.cu:492-501)."""
+        e = torch.complex(e_re.to(F64), e_im.to(F64))
+        out = self._v @ e @ self._v.T
+        return out.real, out.imag
+
+    # -- quantize ------------------------------------------------------------
+
+    @property
+    def delta_bits(self) -> int:
+        d = float(self.params.delta)
+        db = int(round(np.log2(d)))
+        if 2.0 ** db != d:
+            raise ValueError("the words route needs a power-of-two Delta")
+        return db
+
+    def quantize_words(self, words_re, words_im, e_scale):
+        """round(c * Delta) split into RNS limbs straight from the words:
+        an exact right shift by e_scale - log2(Delta), then +-v mod q per
+        limb.  Returns int64 residues [L, ...] for re and im."""
+        diff = e_scale - self.delta_bits
+        if int(diff) < 1:
+            raise ValueError(
+                "quantize_words: message magnitude exceeds the encode "
+                f"contract (e_scale={int(e_scale)} <= "
+                f"delta_bits={self.delta_bits}); residues would be "
+                "mis-scaled")
+        outs = []
+        for m0, m1, m2, sg in (words_re, words_im):
+            lo, hi = words_shr_round(m0, m1, m2, diff)
+            v = lo | (hi << 32)
+            q = moduli_col(self.params.moduli, v.dim(), v.device)
+            r = v % q
+            outs.append(torch.where((sg == 1) & (r != 0), q - r, r))
+        return outs[0], outs[1]

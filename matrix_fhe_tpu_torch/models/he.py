@@ -1,0 +1,165 @@
+"""RLWE Matrix-FHE scheme core: keygen, encrypt, decrypt, roundtrip.
+
+Counterpart of matrix_fhe_tpu/models/he.py on int64 tensors held on one
+device:
+
+  * generate_secret_key (HE.cu:1272-1307): ternary s in W-coeff -> W-CRT
+    eval (K1) -> X-NTT (K1) -> storage form s * 2^64 mod q;
+  * encrypt_pair (HE.cu:1455-1552): a in W-eval; t = iNTT_X(NTT_X(a) (*) s)
+    (K2); b = m - t + e, one shared `a` for the re/im pair;
+  * decrypt: b + a*s (K2);
+  * decrypt_and_decode / roundtrip: the words-chained decode (K3, K4).
+
+The reference-parity randomness streams are constants of the parameter
+set, so their W-eval forms are built once per context (he.py:295-325 in
+the JAX package); a torch.Generator selects fresh randomness instead.
+Layout is limb-major [L, W, n, n].
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import GLParams, get_params
+from ..ops import modmath as mm
+from ..ops.ntt import RING_NEGACYCLIC, XNTT
+from ..ops.wcrt import WTransform
+from ..tables import build_tables
+from . import rng as refrng
+from .batched_encoder import BatchedEncoder
+
+
+class Ciphertext(NamedTuple):
+    """(b, a) pair, W-CRT-eval / X-coeff domain, limb-major [L, W, n, n]."""
+    b: torch.Tensor
+    a: torch.Tensor
+
+
+class SecretKey(NamedTuple):
+    """s in X-NTT x W-eval domain, storage form s * 2^64 mod q, [L, W, n]."""
+    s_mont: torch.Tensor
+
+
+def resolve_device(device) -> torch.device:
+    """The context's device; a CUDA device must exist (no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class HEContext:
+    """All tables and transforms for one parameter set on one device."""
+
+    def __init__(self, params: GLParams, ring: str = RING_NEGACYCLIC,
+                 zero_noise: bool = False, device="cpu"):
+        self.params = params
+        self.ring = ring
+        self.zero_noise = zero_noise
+        self.device = resolve_device(device)
+        self.tables = build_tables(params)
+        self.wt = WTransform(params, self.tables, device=self.device)
+        self.xntt = XNTT(params, ring=ring, tables=self.tables,
+                         device=self.device)
+        self.batched_encoder = BatchedEncoder(params, self.tables, self.wt,
+                                              device=self.device)
+        self.encoder = self.batched_encoder.encoder
+        self._q4 = mm.moduli_col(params.moduli, 3, self.device)
+
+    # -- key generation -------------------------------------------------------
+
+    def generate_secret_key(self, generator: Optional[torch.Generator] = None
+                            ) -> SecretKey:
+        """Deterministic reference-parity key (HE.cu:1272-1307), or fresh
+        key material drawn from `generator`."""
+        if generator is None:
+            s_coeff = refrng.ternary_secret(self.params, self.device)
+        else:
+            s_coeff = refrng.fresh_ternary_secret(generator, self.params,
+                                                  self.device)
+        s_ntt = self.xntt.forward(self.wt.forward(s_coeff))
+        return SecretKey(mm.to_mont(s_ntt, self.params.moduli))
+
+    # -- parity streams ---------------------------------------------------------
+
+    @functools.cached_property
+    def _parity_a_eval(self) -> torch.Tensor:
+        return self.wt.forward(refrng.uniform_a(self.params, self.device))
+
+    @functools.cached_property
+    def _parity_e_eval(self) -> torch.Tensor:
+        return self.wt.forward(refrng.gaussian_noise(self.params, self.device))
+
+    # -- encrypt / decrypt ---------------------------------------------------------
+
+    def _combine(self, m: torch.Tensor, t: torch.Tensor,
+                 e_eval: Optional[torch.Tensor]) -> torch.Tensor:
+        b = mm.sub_mod(m, t, self._q4)
+        return b if e_eval is None else mm.add_mod(b, e_eval, self._q4)
+
+    def encrypt_pair(self, m_re: torch.Tensor, m_im: torch.Tensor,
+                     sk: SecretKey,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Tuple[Ciphertext, Ciphertext]:
+        """Encrypt a packed complex pair sharing one `a` (HE.cuh:91-92).
+        Without a generator both halves carry the reference's one
+        deterministic noise stream (HE.cu:1516-1517)."""
+        if generator is None:
+            a_eval = self._parity_a_eval
+            noises = (None, None) if self.zero_noise else \
+                (self._parity_e_eval,) * 2
+        else:
+            p, dev = self.params, self.device
+            a_eval = self.wt.forward(refrng.fresh_uniform_a(generator, p, dev))
+            noises = (None, None) if self.zero_noise else tuple(
+                self.wt.forward(refrng.fresh_gaussian_noise(generator, p, dev))
+                for _ in range(2))
+        t = self.xntt.mul_s(a_eval, sk.s_mont)
+        return tuple(Ciphertext(b=self._combine(m, t, e), a=a_eval)
+                     for m, e in zip((m_re, m_im), noises))
+
+    def decrypt_pair_to_eval(self, ct_re: Ciphertext, ct_im: Ciphertext,
+                             sk: SecretKey) -> Tuple[torch.Tensor, torch.Tensor]:
+        """b + a*s in W-eval / X-coeff domain for a pair sharing one `a`
+        (a*s computed once)."""
+        t = self.xntt.mul_s(ct_re.a, sk.s_mont)
+        return (mm.add_mod(ct_re.b, t, self._q4),
+                mm.add_mod(ct_im.b, t, self._q4))
+
+    def decrypt_and_decode(self, ct_re: Ciphertext, ct_im: Ciphertext,
+                           sk: SecretKey) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full decode to complex matrices [W, n, n] (HE.cu:1691-1708)."""
+        ev_re, ev_im = self.decrypt_pair_to_eval(ct_re, ct_im, sk)
+        return self.batched_encoder.decode_from_wntt_eval(ev_re, ev_im)
+
+    def roundtrip(self, m_re: torch.Tensor, m_im: torch.Tensor,
+                  sk: SecretKey) -> Tuple[torch.Tensor, torch.Tensor]:
+        """encode -> encrypt -> decrypt -> decode (src/main.cu:31-157), with
+        t = a*s shared by encrypt and decrypt as in the JAX
+        _roundtrip_pair_fn."""
+        pr, pi = self.batched_encoder.encode_to_wntt_eval(m_re, m_im)
+        t = self.xntt.mul_s(self._parity_a_eval, sk.s_mont)
+        e_eval = None if self.zero_noise else self._parity_e_eval
+        evs = [mm.add_mod(self._combine(m, t, e_eval), t, self._q4)
+               for m in (pr, pi)]
+        return self.batched_encoder.decode_from_wntt_eval(*evs)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_context(params_name: str, ring: str, zero_noise: bool,
+                    device: torch.device) -> HEContext:
+    return HEContext(get_params(params_name), ring=ring,
+                     zero_noise=zero_noise, device=device)
+
+
+def init_he_backend(params_name: str = "ref", ring: str = RING_NEGACYCLIC,
+                    zero_noise: bool = False, device="cpu") -> HEContext:
+    """Reference-style singleton constructor (init_he_backend, HE.cu:318),
+    one context per (preset, ring, zero_noise, device)."""
+    return _cached_context(params_name, ring, zero_noise,
+                           resolve_device(device))

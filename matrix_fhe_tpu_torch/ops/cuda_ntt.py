@@ -1,0 +1,179 @@
+"""Kernels K1-K3: the exact modular-matmul stages of the HE path.
+
+Counterpart of matrix_fhe_tpu/ops/pallas_ntt.py (SlicedStage,
+SlicedNttMulNtt, SlicedInvCompose).  Each class owns its tables as int64
+tensors on one device; calling it on a CUDA tensor launches the kernel in
+``csrc/`` and on a CPU tensor runs the plain PyTorch version, ``plain``,
+which is the same function (the CPU tests and chip_smoke.py hold the two
+equal).  All limbs run in one launch: the TPU's limb runs, int8 digit
+planes and u32 lo/hi planes do not exist here.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import _backend as be
+from .modmath import kernel_consts, moduli_col, mul_mod, to_signed64
+from .modmatmul import modmatmul
+
+I64 = torch.int64
+
+
+def _as_i64(table_u64: np.ndarray, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(np.asarray(table_u64, dtype=np.uint64))
+    return torch.from_numpy(arr.view(np.int64).copy()).to(device)
+
+
+def _bits(moduli: Sequence[int], k: int) -> int:
+    """Bit width of the moduli, checked against the kernels' exactness
+    bounds: q < 2^56 and a contraction of k <= 2^16 terms, so that a
+    128-bit sum of products < 2^112 cannot overflow."""
+    bits = max(int(q).bit_length() for q in moduli)
+    if bits >= 56:
+        raise ValueError("moduli must be < 2^56")
+    if k > 1 << 16:
+        raise ValueError(f"contraction of {k} terms exceeds 2^16")
+    return bits
+
+
+class Stage:
+    """K1: one exact modular matmul stage per limb, canonical output.
+
+    side 'left':  out[l, w, m] = sum_r T[l, w, r] * D[l, r, m] mod q_l
+                  (W-CRT; D [L, K, M])
+    side 'right': out[l, r, k] = sum_x D[l, r, x] * T[l, k, x] mod q_l
+                  (X-NTT; D [L, R, K])
+    """
+
+    def __init__(self, tables_u64: np.ndarray, moduli: Sequence[int],
+                 side: str, device):
+        if side not in ("left", "right"):
+            raise ValueError(f"side must be 'left' or 'right', not {side!r}")
+        self.side = side
+        self.moduli = tuple(int(q) for q in moduli)
+        self.bits = _bits(self.moduli, tables_u64.shape[-1])
+        self.table = _as_i64(tables_u64, device)
+        self.consts = kernel_consts(self.moduli, device)
+        self.q = moduli_col(self.moduli, 2, device)
+
+    def __call__(self, data: torch.Tensor) -> torch.Tensor:
+        if be.on_device(data, self.table):
+            return self.kernel(data)
+        return self.plain(data)
+
+    def plain(self, data: torch.Tensor) -> torch.Tensor:
+        return modmatmul(self.table, data, self.q, self.bits, self.side)
+
+    def kernel(self, data: torch.Tensor) -> torch.Tensor:
+        L, W, K = self.table.shape
+        if data.dim() != 3:
+            raise ValueError(f"data must be [L, ., .], got {tuple(data.shape)}")
+        if self.side == "left":
+            M = data.shape[2]
+            be.check(data, "data", I64, (L, K, M))
+            out = torch.empty((L, W, M), dtype=I64, device=data.device)
+            rows, cols = W, M
+            a_strides = (W * K, K, 1)      # A = T[l]  [W, K]
+            b_strides = (K * M, M, 1)      # B = D[l]  [K, M]
+            a, b = self.table, data
+        else:
+            R = data.shape[1]
+            be.check(data, "data", I64, (L, R, K))
+            out = torch.empty((L, R, W), dtype=I64, device=data.device)
+            rows, cols = R, W
+            a_strides = (R * K, K, 1)      # A = D[l]  [R, K]
+            b_strides = (W * K, 1, K)      # B = T[l]^T  [K, W]
+            a, b = data, self.table
+        be.launch("stage", "mf_stage", data.device, a, b, out, self.consts,
+                  L, rows, cols, K, *a_strides, *b_strides)
+        return out
+
+
+class NttMulNtt:
+    """K2: t = iNTT_X(NTT_X(a) (*) s) per limb.
+
+    a [L, R, n] X-coefficient rows, s_mont [L, W, n] in storage form
+    s * 2^64 mod q; row r uses key row r // (R // W).  Both tables follow
+    the out = T @ in convention (fwd [k, x], inv [x, k])."""
+
+    def __init__(self, fwd_u64: np.ndarray, inv_u64: np.ndarray,
+                 moduli: Sequence[int], device):
+        self.moduli = tuple(int(q) for q in moduli)
+        self.bits = _bits(self.moduli, fwd_u64.shape[-1])
+        self.fwd = _as_i64(fwd_u64, device)
+        self.inv = _as_i64(inv_u64, device)
+        self.consts = kernel_consts(self.moduli, device)
+        self.q = moduli_col(self.moduli, 2, device)
+        self.r_inv = moduli_col(
+            [pow(1 << 64, -1, q) for q in self.moduli], 2, device)
+
+    def __call__(self, a: torch.Tensor, s_mont: torch.Tensor) -> torch.Tensor:
+        if be.on_device(a, s_mont, self.fwd):
+            return self.kernel(a, s_mont)
+        return self.plain(a, s_mont)
+
+    def plain(self, a: torch.Tensor, s_mont: torch.Tensor) -> torch.Tensor:
+        rep = a.shape[1] // s_mont.shape[1]
+        v = modmatmul(self.fwd, a, self.q, self.bits, "right")
+        s = mul_mod(s_mont, self.r_inv, self.q)          # s * 2^64 * 2^-64
+        u = mul_mod(v, s.repeat_interleave(rep, dim=1), self.q)
+        return modmatmul(self.inv, u, self.q, self.bits, "right")
+
+    def kernel(self, a: torch.Tensor, s_mont: torch.Tensor) -> torch.Tensor:
+        L, n, _ = self.fwd.shape
+        R, W = a.shape[1], s_mont.shape[1]
+        if R % W:
+            raise ValueError(f"rows {R} not a multiple of key rows {W}")
+        be.check(a, "a", I64, (L, R, n))
+        be.check(s_mont, "s_mont", I64, (L, W, n))
+        out = torch.empty_like(a)
+        be.launch("ntt_mul_ntt", "mf_ntt_mul_ntt", a.device, a, s_mont,
+                  self.fwd, self.inv, self.consts, out, L, R, W, n, R // W)
+        return out
+
+
+class InvCompose:
+    """K3: scaled W-CRT inverse fused with the CRT-compose partials.
+
+    x [L, W, M] eval residues, tables [L, W, W] with M_l^-1 mod q_l folded
+    in.  Returns (acc, k), both int64 [W, M]:
+      acc = sum_l r'_l * (M_l mod 2^64) mod 2^64 (bit pattern),
+      k   = round(sum_l r'_l / q_l)  (f64 sum in limb order, half-even)."""
+
+    def __init__(self, scaled_u64: np.ndarray, moduli: Sequence[int],
+                 big_q: int, device):
+        self.moduli = tuple(int(q) for q in moduli)
+        self.bits = _bits(self.moduli, scaled_u64.shape[-1])
+        self.table = _as_i64(scaled_u64, device)
+        self.consts = kernel_consts(self.moduli, device)
+        self.q = moduli_col(self.moduli, 2, device)
+        self.m64 = [to_signed64(big_q // q) for q in self.moduli]
+        self.m64_t = torch.tensor(self.m64, dtype=I64, device=device)
+
+    def __call__(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if be.on_device(x, self.table):
+            return self.kernel(x)
+        return self.plain(x)
+
+    def plain(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        r = modmatmul(self.table, x, self.q, self.bits, "left")
+        acc = torch.zeros(r.shape[1:], dtype=I64, device=x.device)
+        kf = torch.zeros(r.shape[1:], dtype=torch.float64, device=x.device)
+        for l, q in enumerate(self.moduli):
+            acc = acc + r[l] * self.m64[l]               # wraps mod 2^64
+            kf = kf + r[l].to(torch.float64) / float(q)
+        return acc, torch.round(kf).to(I64)
+
+    def kernel(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        L, W, K = self.table.shape
+        M = x.shape[2] if x.dim() == 3 else -1
+        be.check(x, "x", I64, (L, K, M))
+        acc = torch.empty((W, M), dtype=I64, device=x.device)
+        k = torch.empty((W, M), dtype=I64, device=x.device)
+        be.launch("inv_compose", "mf_inv_compose", x.device, x, self.table,
+                  self.consts, self.m64_t, acc, k, L, W, K, M)
+        return acc, k

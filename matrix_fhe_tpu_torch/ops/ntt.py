@@ -1,0 +1,57 @@
+"""X-axis NTT (degree-n polynomial axis) as exact modular matmuls.
+
+Counterpart of matrix_fhe_tpu/ops/ntt.py (XNTT) on int64 residues.  A full
+X transform is one batched [rows, n] @ [n, n]^T modular matmul per limb
+(kernel K1, side "right"), and mul_s is the fused
+iNTT_X(NTT_X(a) (*) s) of encrypt and decrypt (kernel K2).  The TPU's
+128-lane block-diagonal packing has no counterpart: it only filled the
+TPU's vector lanes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import GLParams
+from ..tables import GLTables, build_tables
+from .cuda_ntt import NttMulNtt, Stage
+
+RING_NEGACYCLIC = "nega"  # X^n + 1 (production / phantom parity ring)
+RING_GL = "gl"            # X^n = psi4n^n (= +-i) GL twist ring
+
+
+class XNTT:
+    """Forward/inverse length-n transform along the trailing axis of
+    [L, ..., n] int64 residues, batched over everything else."""
+
+    def __init__(self, params: GLParams, ring: str = RING_NEGACYCLIC,
+                 tables: GLTables | None = None, device="cpu"):
+        t = tables or build_tables(params)
+        if ring == RING_NEGACYCLIC:
+            fwd, inv = t.x_fwd_nega, t.x_inv_nega
+        elif ring == RING_GL:
+            fwd, inv = t.x_fwd_gl, t.x_inv_gl
+        else:
+            raise ValueError(f"unknown ring {ring!r}")
+        self._fwd = Stage(fwd, params.moduli, "right", device)
+        self._inv = Stage(inv, params.moduli, "right", device)
+        self._mul_s = NttMulNtt(fwd, inv, params.moduli, device)
+
+    @staticmethod
+    def _apply(stage: Stage, x: torch.Tensor) -> torch.Tensor:
+        flat = x.reshape(x.shape[0], -1, x.shape[-1]).contiguous()
+        return stage(flat).reshape(x.shape)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._apply(self._fwd, x)
+
+    def inverse(self, x: torch.Tensor) -> torch.Tensor:
+        return self._apply(self._inv, x)
+
+    def mul_s(self, a: torch.Tensor, s_mont: torch.Tensor) -> torch.Tensor:
+        """t = iNTT_X(NTT_X(a) (*) s): a [L, W, ..., n] X-coefficients,
+        s_mont [L, W, n] in X-NTT domain and storage form s * 2^64 mod q,
+        broadcast over the axes between W and n."""
+        L, n = a.shape[0], a.shape[-1]
+        rows = a.reshape(L, -1, n).contiguous()
+        return self._mul_s(rows, s_mont.contiguous()).reshape(a.shape)

@@ -25,6 +25,11 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips on a host without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(20260816)
