@@ -9,11 +9,14 @@ bit by tests/test_torch_*.py.
   * Residues are int64 tensors of canonical values (< q < 2^56) in the
     limb-major [L, W, n, n] layout.
   * The exact modular matmuls (W-CRT, X-NTT, the fused NTT-multiply-iNTT
-    and the fused inverse + CRT compose) and the exact fixed-point complex
-    matmul are hand-written CUDA kernels (csrc/), each with a plain PyTorch
-    version beside it: a CPU tensor takes the plain version, a CUDA tensor
-    the kernel.
+    and the fused inverse + CRT compose), the exact fixed-point complex
+    matmul, the four-step NTT and the trace GEMM are hand-written CUDA
+    kernels (csrc/), each with a plain PyTorch version beside it: a CPU
+    tensor takes the plain version, a CUDA tensor the kernel.
   * A context lives on one device: init_he_backend(name, device=...).
+  * Beside the roundtrip: the homomorphic matrix product C = Y^H X
+    (HEMatmul, the trace GEMM) and the large-N four-step NTT
+    (ops/ntt_large.FourStepNTT).
 
 The package imports torch, numpy and the standard library, never jax.
 """
@@ -27,6 +30,7 @@ _LAZY = {
     "SecretKey": ".models.he",
     "HEContext": ".models.he",
     "init_he_backend": ".models.he",
+    "HEMatmul": ".models.he_matmul",
 }
 
 

@@ -1,11 +1,11 @@
 """JAX package state -> port state.
 
 Turns the uint64 arrays of matrix_fhe_tpu objects (secret keys,
-ciphertexts, tables) into the port's int64 tensors on a given device, so
-that both packages can compute on the same key and ciphertexts.  Objects
-are read through their attributes and np.asarray, so this module does not
-import jax.  Residues are canonical (< 2^56), so the uint64 -> int64
-reinterpretation keeps every value.
+ciphertexts, homomorphic-GEMM tensors, tables) into the port's int64
+tensors on a given device, so that both packages can compute on the same
+key and ciphertexts.  Objects are read through their attributes and
+np.asarray, so this module does not import jax.  Residues are canonical
+(< 2^56), so the uint64 -> int64 reinterpretation keeps every value.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .models.he import Ciphertext, SecretKey
+from .models.he_matmul import MatmulTensor
 
 
 def residues(x, device="cpu") -> torch.Tensor:
@@ -36,6 +37,11 @@ def secret_key(sk, device="cpu") -> SecretKey:
 def ciphertext(ct, device="cpu") -> Ciphertext:
     """matrix_fhe_tpu Ciphertext -> port Ciphertext (b, a) [L, W, n, n]."""
     return Ciphertext(b=residues(ct.b, device), a=residues(ct.a, device))
+
+
+def matmul_tensor(tt, device="cpu") -> MatmulTensor:
+    """matrix_fhe_tpu MatmulTensor -> port MatmulTensor (eight [L, W, n, n])."""
+    return MatmulTensor(*(residues(x, device) for x in tt))
 
 
 def tables(t, device="cpu") -> dict:

@@ -8,6 +8,10 @@ decode_pair there):
           -> mod-q W-CRT forward (K1)
   decode: scaled W-CRT inverse fused with the CRT compose (K3) -> W-DFT
           (K4) -> XY-DFT sandwich (K4) -> one f64 reconstruction
+  decode with delta_override (Delta^2-scaled homomorphic products, whose
+          values pass 2^63 where K3's mod-2^64 compose cannot follow):
+          W-CRT inverse (K1) -> exact big-int compose / delta -> W-DFT (K4)
+          -> XY-DFT sandwich (K4), as batched_encoder.py:56-78 there
 
 Layout is limb-major [L, W, n, n].
 """
@@ -45,10 +49,16 @@ class BatchedEncoder:
         return (self.wt.forward(rr.reshape(shape)),
                 self.wt.forward(ri.reshape(shape)))
 
-    def decode_from_wntt_eval(self, ev_re: torch.Tensor, ev_im: torch.Tensor
+    def decode_from_wntt_eval(self, ev_re: torch.Tensor, ev_im: torch.Tensor,
+                              delta_override: float | None = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Inverse of encode_to_wntt_eval: [L, W, n, n] int64 pair ->
-        [W, n, n] f64 pair."""
+        [W, n, n] f64 pair, divided by delta_override instead of Delta when
+        one is given."""
+        if delta_override is not None:
+            fr, fi = self.encoder.dequantize_exact_delta(
+                self.wt.inverse(ev_re), self.wt.inverse(ev_im), delta_override)
+            return self.encoder.dft2_exact(*self.wt.dft_forward_pair(fr, fi))
         both = torch.stack([ev_re, ev_im], dim=2)             # [L, W, 2, n, n]
         f2 = self.wt.inverse_scaled_compose(both, self.params.delta)
         fr, fi = f2[:, 0], f2[:, 1]

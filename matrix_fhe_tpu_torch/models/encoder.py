@@ -5,7 +5,10 @@ is mapped to XY-coefficient space by V^-1 M V^-T (encoder.cu:329-501).  The
 port runs the JAX package's words-chained route: both halves of each
 sandwich are exact fixed-point matmuls (kernel K4) linked by exact
 integer shift-rounds, the encode quantize works on the words, and decode
-reconstructs f64 once at the end.  The f64 `idft2` / `dft2` are the plain
+reconstructs f64 once at the end.  The Delta^2 decode of homomorphic
+products uses the exact big-int dequantize and `dft2_exact`, the sandwich
+with an f64 reconstruction after each K4 half (the JAX route with the
+fixed-point transforms on).  The f64 `idft2` / `dft2` are the plain
 complex128 sandwiches, kept for tests.
 """
 
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import GLParams
+from ..ops.crt import CRTComposer
 from ..ops.ddfloat import words_shr_round
 from ..ops.fpmatmul import ExactComplexMatmul
 from ..ops.modmath import moduli_col
@@ -40,6 +44,7 @@ class Encoder:
         self._fp_vi = ExactComplexMatmul(t.enc_v_inv, device)
         self._v = torch.from_numpy(t.enc_v).to(device)
         self._vi = torch.from_numpy(t.enc_v_inv).to(device)
+        self._composer = CRTComposer(t)
 
     # -- words-chained transforms ------------------------------------------
 
@@ -80,6 +85,21 @@ class Encoder:
         ur, ui, e2 = self._sandwich_words_tail(fp, ur, ui, e1, W, n)
         return (ExactComplexMatmul.words_to_f64(ur, e2),
                 ExactComplexMatmul.words_to_f64(ui, e2))
+
+    def dft2_exact(self, e_re: torch.Tensor, e_im: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """V E V^T of an f64 pair [W, n, n], each half an exact fixed-point
+        matmul (K4) reconstructed to f64 (the JAX _sandwich with fp)."""
+        fp = self._fp_v
+        W, n = e_re.shape[0], e_re.shape[-1]
+        mr = e_re.to(F64).transpose(0, 1).reshape(n, -1)
+        mi = e_im.to(F64).transpose(0, 1).reshape(n, -1)
+        tr, ti = fp(mr, mi)                               # [n(i'), W*n(j)]
+        sr = tr.reshape(n, W, n).permute(2, 1, 0).reshape(n, -1)
+        si = ti.reshape(n, W, n).permute(2, 1, 0).reshape(n, -1)
+        ur, ui = fp(sr, si)                               # [n(j'), W*n(i')]
+        return (ur.reshape(n, W, n).permute(1, 2, 0),
+                ui.reshape(n, W, n).permute(1, 2, 0))
 
     # -- f64 reference sandwiches (tests) ----------------------------------
 
@@ -124,3 +144,16 @@ class Encoder:
             r = v % q
             outs.append(torch.where((sg == 1) & (r != 0), q - r, r))
         return outs[0], outs[1]
+
+    # -- exact dequantize ----------------------------------------------------
+
+    def dequantize_exact(self, rns_re, rns_im):
+        """Exact big-int CRT -> f64 / Delta (dequantize_exact_kernel,
+        encoder.cu:112-150); inputs [L, ..., n, n]."""
+        return self.dequantize_exact_delta(rns_re, rns_im, self.params.delta)
+
+    def dequantize_exact_delta(self, rns_re, rns_im, delta):
+        """dequantize_exact with an explicit scale (e.g. Delta^2 for
+        un-rescaled homomorphic products)."""
+        return (self._composer.compose_to_float(rns_re, delta),
+                self._composer.compose_to_float(rns_im, delta))

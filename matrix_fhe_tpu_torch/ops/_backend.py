@@ -5,10 +5,11 @@ kernel's plain PyTorch version, a CUDA tensor takes the kernel or raises.
 There is no switch that picks the plain version for a CUDA tensor.
 
 The kernels live in ``matrix_fhe_tpu_torch/csrc/*.cu`` and are compiled on
-first use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into one
-shared library with a plain C interface, which ctypes loads.  The library
-is built into ``matrix_fhe_tpu_torch/_build/`` and rebuilt when a source is
-newer than it.  Each wrapper adds one to ``LAUNCHES[name]`` where it
+first use with ``nvcc -gencode arch=compute_90a,code=sm_90a``, one nvcc
+process per source, all started together, then linked into one shared
+library with a plain C interface, which ctypes loads.  The library is built
+into ``matrix_fhe_tpu_torch/_build/`` and rebuilt when a source is newer
+than it.  Each wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel, so a run can show which kernels its main path used.
 """
 
@@ -27,11 +28,12 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("stage.cu", "ntt_mul_ntt.cu", "inv_compose.cu", "fp_cmatmul.cu")
+SOURCES = ("stage.cu", "ntt_mul_ntt.cu", "inv_compose.cu", "fp_cmatmul.cu",
+           "four_step_ntt.cu", "cgemm.cu")
 HEADERS = ("modarith.cuh",)
 LIBRARY = os.path.join(BUILD, "libmfhe_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # launches per kernel since the last reset (read by chip_smoke.py)
 LAUNCHES: collections.Counter = collections.Counter()
@@ -46,6 +48,8 @@ _SIGNATURES = {
     "mf_ntt_mul_ntt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mf_inv_compose": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mf_fp_cmatmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mf_four_step": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "mf_cgemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -78,15 +82,28 @@ def build() -> str:
     if not _stale():
         return LIBRARY
     os.makedirs(BUILD, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-           *(os.path.join(CSRC, f) for f in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmpdir:
+        objs = [os.path.join(tmpdir, f + ".o") for f in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj,
+             os.path.join(CSRC, f)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for f, obj in zip(SOURCES, objs)]
+        errors = []
+        for f, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{f}: nvcc failed ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        tmp = os.path.join(tmpdir, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, LIBRARY)
     return LIBRARY
 
 
@@ -127,8 +144,8 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
 
 def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
     """Call the C launcher on the current stream of `device` (tensors are
-    passed as their data pointers) and raise on a nonzero
-    cudaGetLastError(); counts the launch under `kernel`."""
+    passed as their data pointers, None as a null pointer) and raise on a
+    nonzero cudaGetLastError(); counts the launch under `kernel`."""
     fn = getattr(library(), fn_name)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):

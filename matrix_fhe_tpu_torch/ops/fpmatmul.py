@@ -167,3 +167,11 @@ class ExactComplexMatmul:
         m0, m1, m2, sg = words
         v = m0.to(F64) + m1.to(F64) * 2.0 ** 32 + m2.to(F64) * 2.0 ** 64
         return torch.where(sg == 1, -v, v) * pow2(-e_scale)
+
+    def __call__(self, xr: torch.Tensor, xi: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """T @ (xr + i xi) reconstructed to f64
+        (matrix_fhe_tpu/ops/fpmatmul.py:370-374)."""
+        words_re, words_im, e_scale = self.call_words(xr, xi)
+        return (self.words_to_f64(words_re, e_scale),
+                self.words_to_f64(words_im, e_scale))

@@ -83,13 +83,15 @@ def find_eta(q: int, p: int, f1: int, f2: int) -> int:
     raise ValueError("failed to find eta for W-CRT")
 
 
-def kernel_consts(moduli: Sequence[int], device) -> torch.Tensor:
+def kernel_consts(moduli: Sequence[int], device, scale: int = 1) -> torch.Tensor:
     """[L, 3] int64 (bit patterns of uint64) per-limb constants
-    (q, -q^-1 mod 2^64, 2^128 mod q), the layout the kernels read."""
+    (q, -q^-1 mod 2^64, scale * 2^128 mod q), the layout the kernels read.
+    The kernels' final reduction multiplies by the third constant, so a
+    `scale` other than 1 is folded into every output for free."""
     rows = []
     for q in moduli:
         c = MontConsts.make(int(q))
-        rows.append([c.q, c.qinv_neg, c.r2])
+        rows.append([c.q, c.qinv_neg, int(scale) % c.q * c.r2 % c.q])
     arr = np.array(rows, dtype=np.uint64).view(np.int64)
     return torch.from_numpy(arr.copy()).to(device)
 
@@ -113,6 +115,10 @@ def add_mod(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def sub_mod(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     d = a - b
     return torch.where(d < 0, d + q, d)
+
+
+def neg_mod(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return torch.where(a == 0, a, q - a)
 
 
 def mul_mod(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

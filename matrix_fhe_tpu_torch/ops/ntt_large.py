@@ -1,0 +1,240 @@
+"""Large-N negacyclic NTT via the four-step (Bailey) factorization.
+
+Counterpart of matrix_fhe_tpu/ops/ntt_large.py (FourStepNTT) on int64
+residues.  N = n1 * n2 and, on [L, B, N] with x[i1 * n2 + i2]:
+
+    twist:   x *= psi^i                      (negacyclic only, psi^N = -1)
+    stage 1: y[i2, k1] = sum_i1 x[i1, i2] w1^(i1 k1)   (cyclic DFT_n1)
+    twiddle: y[i2, k1] *= w_N^(i2 k1)
+    stage 2: z[k1, k2] = sum_i2 y[i2, k1] w2^(i2 k2)   (cyclic DFT_n2)
+
+The forward output is in four-step order, out[k1 * n2 + k2]; the inverse
+consumes that order and returns natural order.  The roots come from the
+smallest primitive root of each modulus, as in the JAX package, so the
+spectra are the same integers.
+
+Kernel K5 (csrc/four_step_ntt.cu) computes the whole forward or inverse on
+a CUDA tensor; a CPU tensor takes the plain version, which follows the JAX
+stages as exact float64-digit modular matmuls (ops/modmatmul.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import generate_primes_1mod  # noqa: F401  (the JAX module's export)
+from . import _backend as be
+from .modmath import kernel_consts, moduli_col, mul_mod, to_mont
+from .modmatmul import modmatmul
+
+I64 = torch.int64
+
+
+@dataclasses.dataclass(frozen=True)
+class FourStepPlan:
+    n: int
+    n1: int
+    n2: int
+    moduli: Tuple[int, ...]
+    negacyclic: bool = True
+
+    @staticmethod
+    def make(n: int, moduli: Sequence[int], negacyclic: bool = True,
+             n1: int | None = None) -> "FourStepPlan":
+        if n & (n - 1):
+            raise ValueError("N must be a power of two")
+        if n1 is None:
+            half = n.bit_length() - 1
+            n1 = 1 << (half // 2)
+        return FourStepPlan(n=n, n1=n1, n2=n // n1,
+                            moduli=tuple(int(q) for q in moduli),
+                            negacyclic=negacyclic)
+
+
+def _find_generator(q: int) -> int:
+    """Smallest primitive root mod prime q (exact factorization of q-1)."""
+    phi = q - 1
+    fac = _factorize(phi)
+    for g in range(2, 1 << 20):
+        if all(pow(g, phi // f, q) != 1 for f in fac):
+            return g
+    raise ValueError("no generator found")
+
+
+@functools.lru_cache(maxsize=None)
+def _factorize(x: int) -> Tuple[int, ...]:
+    fs = []
+    d = 2
+    while d * d <= x:
+        if x % d == 0:
+            fs.append(d)
+            while x % d == 0:
+                x //= d
+        d += 1
+    if x > 1:
+        fs.append(x)
+    return tuple(fs)
+
+
+def _powers(root: int, count: int, q: int) -> np.ndarray:
+    """root^e mod q for e in [0, count) as Python ints (object array),
+    from two short Python loops and one outer product."""
+    step = 1 << (count.bit_length() // 2)
+    lo = [1]
+    for _ in range(step - 1):
+        lo.append(lo[-1] * root % q)
+    big = pow(root, step, q)
+    hi = [1]
+    for _ in range(-(-count // step) - 1):
+        hi.append(hi[-1] * big % q)
+    out = (np.array(hi, dtype=object)[:, None]
+           * np.array(lo, dtype=object)[None, :]) % q
+    return out.reshape(-1)[:count]
+
+
+def _limb_tables(plan: FourStepPlan, q: int) -> Dict[str, np.ndarray]:
+    """One limb's tables (canonical, not Montgomery), as uint64 arrays."""
+    n, n1, n2 = plan.n, plan.n1, plan.n2
+    order = 2 * n if plan.negacyclic else n
+    if (q - 1) % order:
+        raise ValueError(f"modulus {q} lacks order-{order} root")
+    g = _find_generator(q)
+    pw = _powers(pow(g, (q - 1) // n, q), n, q)       # w_N^e, e < N
+    a1, a2 = np.arange(n1), np.arange(n2)
+    out = {
+        # stage tables t[k, i] = w^(+-k i); w1 = w_N^n2, w2 = w_N^n1
+        "t1f": pw[(np.outer(a1, a1) % n1) * n2],
+        "t1i": pw[((-np.outer(a1, a1)) % n1) * n2],
+        "t2f": pw[(np.outer(a2, a2) % n2) * n1],
+        "t2i": pw[((-np.outer(a2, a2)) % n2) * n1],
+        # twiddles at [k1, i2]: w_N^(+-i2 k1)
+        "tw_f": pw[np.outer(a1, a2) % n],
+        "tw_i": pw[(-np.outer(a1, a2)) % n],
+    }
+    n_inv = pow(n, -1, q)
+    if plan.negacyclic:
+        ps = _powers(pow(g, (q - 1) // (2 * n), q), n, q)   # psi^i, i < N
+        # psi^-i = psi^(2N - i) = -psi^(N - i) for i >= 1
+        ps_inv = np.concatenate([np.array([1], dtype=object),
+                                 (q - ps[:0:-1]) % q])
+        out["twist_f"] = ps
+        out["post_i"] = ps_inv * n_inv % q
+    else:
+        out["post_i"] = np.full(n, n_inv, dtype=object)
+    if n1 == n2:
+        half = np.arange(n1 // 2)
+        out["dft_f"] = pw[half * n2]                 # w1^j, j < n1 / 2
+        out["dft_i"] = pw[((-half) % n1) * n2]
+    return {k: v.astype(np.uint64) for k, v in out.items()}
+
+
+class FourStepNTT:
+    """Batched forward/inverse NTT over [L, B, N] int64 residues on one
+    device (tables live there)."""
+
+    def __init__(self, plan: FourStepPlan, device="cpu"):
+        self.plan = plan
+        self.device = torch.device(device)
+        self.bits = max(int(q).bit_length() for q in plan.moduli)
+        if self.bits >= 56:
+            raise ValueError("moduli must be < 2^56")
+        per_limb = [_limb_tables(plan, q) for q in plan.moduli]
+        tabs = {k: np.stack([t[k] for t in per_limb]) for k in per_limb[0]}
+        self._t = {k: torch.from_numpy(v.view(np.int64)).to(self.device)
+                   for k, v in tabs.items()}
+        self._q3 = moduli_col(plan.moduli, 2, self.device)
+        self._q4 = moduli_col(plan.moduli, 3, self.device)
+
+    # -- dispatch ----------------------------------------------------------------
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[L, B, N] -> four-step-order spectrum [L, B, N]."""
+        if be.on_device(x, self._q3):
+            return self.forward_kernel(x)
+        return self.forward_plain(x)
+
+    def inverse(self, xf: torch.Tensor) -> torch.Tensor:
+        """Four-step-order spectrum -> [L, B, N] natural-order coefficients."""
+        if be.on_device(xf, self._q3):
+            return self.inverse_kernel(xf)
+        return self.inverse_plain(xf)
+
+    def pointwise_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Spectral pointwise product (order-independent)."""
+        return mul_mod(a, b, self._q3)
+
+    # -- plain version: the JAX stages -------------------------------------------
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        p, t = self.plan, self._t
+        L, B = x.shape[0], x.shape[1]
+        n1, n2 = p.n1, p.n2
+        if p.negacyclic:
+            x = mul_mod(x, t["twist_f"][:, None, :], self._q3)
+        x = x.reshape(L, B, n1, n2).transpose(1, 2).reshape(L, n1, B * n2)
+        y = modmatmul(t["t1f"], x, self._q3, self.bits, "left")  # [L, k1, (B, i2)]
+        y = mul_mod(y.reshape(L, n1, B, n2), t["tw_f"].reshape(L, n1, 1, n2),
+                    self._q4)
+        z = modmatmul(t["t2f"], y.reshape(L, n1 * B, n2), self._q3, self.bits,
+                      "right")                                   # [L, (k1, B), k2]
+        return z.reshape(L, n1, B, n2).transpose(1, 2).reshape(L, B, p.n)
+
+    def inverse_plain(self, xf: torch.Tensor) -> torch.Tensor:
+        p, t = self.plan, self._t
+        L, B = xf.shape[0], xf.shape[1]
+        n1, n2 = p.n1, p.n2
+        y = modmatmul(t["t2i"], xf.reshape(L, B * n1, n2), self._q3,
+                      self.bits, "right")                        # [L, (B, k1), i2]
+        y = mul_mod(y.reshape(L, B, n1, n2), t["tw_i"].reshape(L, 1, n1, n2),
+                    self._q4)
+        y = y.transpose(1, 2).reshape(L, n1, B * n2)              # [L, k1, (B, i2)]
+        w = modmatmul(t["t1i"], y, self._q3, self.bits, "left")   # [L, i1, (B, i2)]
+        x = w.reshape(L, n1, B, n2).transpose(1, 2).reshape(L, B, p.n)
+        return mul_mod(x, t["post_i"][:, None, :], self._q3)      # n^-1 psi^-i
+
+    # -- kernel K5 ---------------------------------------------------------------
+
+    @functools.cached_property
+    def _kernel_tables(self) -> Dict[str, torch.Tensor]:
+        """The kernel's tables in Montgomery form (value * 2^64 mod q)."""
+        p = self.plan
+        if p.n1 != p.n2:
+            raise ValueError(f"kernel K5 needs n1 == n2 (plan {p.n1} x {p.n2})")
+        names = ["dft_f", "dft_i", "tw_f", "tw_i", "post_i"]
+        if p.negacyclic:
+            names.append("twist_f")
+        out = {k: to_mont(self._t[k], p.moduli).contiguous() for k in names}
+        out["consts"] = kernel_consts(p.moduli, self.device)
+        return out
+
+    def _launch(self, name: str, x: torch.Tensor, col_first: bool,
+                pass_a, pass_b) -> torch.Tensor:
+        p = self.plan
+        k = self._kernel_tables
+        L, B = len(p.moduli), (x.shape[1] if x.dim() == 3 else -1)
+        be.check(x, "x", I64, (L, B, p.n))
+        if B > 65535:
+            raise ValueError(f"batch {B} exceeds the kernel grid (65535)")
+        out = torch.empty_like(x)
+        be.launch(name, "mf_four_step", x.device, x, out, k["consts"], L, B,
+                  p.n1, int(col_first), *pass_a, *pass_b)
+        return out
+
+    def forward_kernel(self, x: torch.Tensor) -> torch.Tensor:
+        k = self._kernel_tables
+        # pass A: columns, psi^i before the DFT, w_N^(i2 k1) after; pass B: rows
+        return self._launch("four_step_fwd", x, True,
+                            (k["dft_f"], k.get("twist_f"), k["tw_f"]),
+                            (k["dft_f"], None, None))
+
+    def inverse_kernel(self, xf: torch.Tensor) -> torch.Tensor:
+        k = self._kernel_tables
+        # pass A: rows, w_N^-(i2 k1) after; pass B: columns, n^-1 psi^-i after
+        return self._launch("four_step_inv", xf, False,
+                            (k["dft_i"], None, k["tw_i"]),
+                            (k["dft_i"], None, k["post_i"]))

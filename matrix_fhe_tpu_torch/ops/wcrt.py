@@ -1,9 +1,11 @@
 """W-axis transforms: mod-q W-CRT and the complex W-DFT words entry points.
 
 Counterpart of matrix_fhe_tpu/ops/wcrt.py (WTransform) on the port's one
-route: the W-CRT forward is kernel K1 (side "left"), the scaled W-CRT
-inverse fused with the CRT compose is kernel K3, and the 512-point complex
-W-DFT / IDFT run as exact fixed-point matmuls on words (kernel K4).
+route: the W-CRT forward and inverse are kernel K1 (side "left"), the
+scaled W-CRT inverse fused with the CRT compose is kernel K3, and the
+512-point complex W-DFT / IDFT run as exact fixed-point matmuls on words
+(kernel K4).  The inverse and the exact big-int composer serve the
+Delta^2-scaled decode of homomorphic products.
 
 Layout is limb-major [L, W, ...] as in the JAX package.
 """
@@ -15,6 +17,7 @@ import torch
 
 from ..config import GLParams
 from ..tables import GLTables, build_tables
+from .crt import CRTComposer
 from .cuda_ntt import InvCompose, Stage
 from .ddfloat import compose_tail_from_partials
 from .fpmatmul import ExactComplexMatmul
@@ -39,6 +42,8 @@ class WTransform:
         t = tables or build_tables(params)
         self.params = params
         self._fwd = Stage(t.w_fwd, params.moduli, "left", device)
+        self._inv = Stage(t.w_inv, params.moduli, "left", device)
+        self.composer = CRTComposer(t)
         self.big_q = params.q_total
         self._inv_compose = InvCompose(scaled_inverse_tables(t),
                                        params.moduli, self.big_q, device)
@@ -49,6 +54,11 @@ class WTransform:
         """[L, W, ...] coeff -> eval (out[w] = sum_r V[w, r] x[r])."""
         L, W = x.shape[0], x.shape[1]
         return self._fwd(x.reshape(L, W, -1).contiguous()).reshape(x.shape)
+
+    def inverse(self, x: torch.Tensor) -> torch.Tensor:
+        """[L, W, ...] eval -> coeff (out[r] = sum_w V^-1[r, w] x[w])."""
+        L, W = x.shape[0], x.shape[1]
+        return self._inv(x.reshape(L, W, -1).contiguous()).reshape(x.shape)
 
     def inverse_scaled_compose(self, x: torch.Tensor,
                                delta: float) -> torch.Tensor:
@@ -62,6 +72,14 @@ class WTransform:
     def dft_inverse_words_w(self, words_re, words_im, e_scale):
         """W-IDFT chained on upstream fixed-point words ([W, M] planes)."""
         return self._fp_idft.call_words_w(words_re, words_im, e_scale)
+
+    def dft_forward_pair(self, re: torch.Tensor, im: torch.Tensor):
+        """W-DFT of an f64 pair [W, ...] coeff -> eval, reconstructed to f64
+        (ExactComplexMatmul.__call__, the JAX fixed-point route)."""
+        W = re.shape[0]
+        yr, yi = self._fp_dft(re.reshape(W, -1).to(torch.float64),
+                              im.reshape(W, -1).to(torch.float64))
+        return yr.reshape(re.shape), yi.reshape(re.shape)
 
     def dft_forward_words(self, re: torch.Tensor, im: torch.Tensor):
         """W-DFT of an f64 pair [W, ...] as fixed-point words [W, M]."""

@@ -326,3 +326,39 @@ def test_cuda_fp_cmatmul_matches_plain(cuda, table):
     want = tfp.fp_cmatmul_plain(tm.tr, tm.ti, xr, xi)
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,n,nega", [(35, 1024, True), (28, 4096, True),
+                                         (35, 256, False), (23, 64, True)])
+def test_cuda_four_step_ntt_matches_plain(cuda, bits, n, nega):
+    from matrix_fhe_tpu_torch.ops.ntt_large import (FourStepNTT, FourStepPlan,
+                                                    generate_primes_1mod)
+    rng = np.random.default_rng(16)
+    moduli = generate_primes_1mod(3, bits, 2 * n)
+    ntt = FourStepNTT(FourStepPlan.make(n, moduli, negacyclic=nega), cuda)
+    x = i64(residues(rng, moduli, (5, n))).to(cuda)
+    fwd = _launched("four_step_fwd", lambda: ntt.forward(x))
+    assert torch.equal(fwd.cpu(), ntt.forward_plain(x).cpu())
+    back = _launched("four_step_inv", lambda: ntt.inverse(fwd))
+    assert torch.equal(back.cpu(), ntt.inverse_plain(fwd).cpu())
+    assert torch.equal(back, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["tiny", "small"])
+def test_cuda_cgemm_matches_plain(cuda, preset):
+    from matrix_fhe_tpu_torch.ops.cgemm import CGemm
+
+    p = get_params(preset)
+    rng = np.random.default_rng(17)
+    wide = REF_P_MODULI[:1] + get_params("ref").moduli[:2]   # 55, 45, 35 bits
+    for moduli, lanes, n, scale in ((p.moduli, p.phi, p.n, p.n),
+                                    (wide, 3, 70, 1234567)):
+        gemm = CGemm(moduli, scale, cuda)
+        ops = [i64(residues(rng, moduli, (lanes, n, n))).to(cuda)
+               for _ in range(4)]
+        got = _launched("cgemm", lambda: gemm(*ops))
+        want = gemm.plain(*ops)
+        assert torch.equal(got[0].cpu(), want[0].cpu())
+        assert torch.equal(got[1].cpu(), want[1].cpu())
