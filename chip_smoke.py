@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from matrix_fhe_tpu_torch/csrc/ (one nvcc per
-source, in parallel) and drives three paths of the port through their
+source, in parallel) and drives four paths of the port through their
 public entry points, each with the launch counts set to 0 just before it
 and read just after:
 
@@ -15,7 +15,13 @@ and read just after:
      (FourStepNTT forward / inverse, kernel K5): NTT/s over chained
      forwards, and inverse(forward(x)) == x on the whole batch;
   3. the homomorphic matrix product at ref (ring "gl", HEMatmul, kernel K6
-     with K1, K2 and K4), max |C - Y^H X| < 1e-4 as examples/matmul.py.
+     with K1, K2 and K4), max |C - Y^H X| < 1e-4 as examples/matmul.py;
+  4. the gl2 ciphertext GEMM at ref as examples/matmul_gl2.py (Gl2Context,
+     HEMatmul2, Gl2GemmRelin with the preset's P basis, dnum = 4): keygen,
+     switch keys, encode, encrypt, tensor (K7), relinearize, decrypt and the
+     Delta^2 decode (K1, K2 at 2n = 128, K4), error < 2 base_err + 0.1
+     where base_err is the two-sided opening's; phase times and memory;
+     then a tiny gl2 GEMM on the card against the CPU plain path.
 
 Every kernel is held bit for bit against its plain PyTorch version at the
 shapes its path gives it, and both are timed.  Fails (nonzero exit, no
@@ -285,6 +291,197 @@ def matmul_path():
     return [row], summary
 
 
+def event_ms(fn) -> float:
+    """Milliseconds of one call from CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def gl2_path():
+    """examples/matmul_gl2.py on the port at ref: C = Y^H X, ciphertext in,
+    standard ciphertext out, on 512 packed 64x64 lanes; then K7, K2 at
+    2n = 128, K1 over the QP basis and K4 on the encode's inverse tables
+    against their plain versions at the path's shapes (outside the counted
+    run), and a tiny gl2 GEMM on the card against the CPU.  Returns (rows,
+    summary)."""
+    from matrix_fhe_tpu_torch import Gl2Context, Gl2GemmRelin, HEMatmul2
+    from matrix_fhe_tpu_torch.config import get_params
+    from matrix_fhe_tpu_torch.ops import _backend as be
+
+    p = get_params("ref")
+    t0 = time.perf_counter()
+    ctx = Gl2Context(p, device="cuda")
+    hm = HEMatmul2(ctx)
+    gr = Gl2GemmRelin(hm)
+    rc = gr.rc
+    torch.cuda.synchronize()
+    log(f"[gl2] ref gl2 context, P of {[q.bit_length() for q in rc.p_moduli]}"
+        f" bits, dnum {rc.dnum}, Lqp {len(rc.qp_moduli)}, QP chunks "
+        f"{gr._qp_chunks()}, in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(7)
+    W, n = p.phi, p.n
+    X = rng.uniform(-1, 1, (W, n, n)) + 1j * rng.uniform(-1, 1, (W, n, n))
+    Y = rng.uniform(-1, 1, (W, n, n)) + 1j * rng.uniform(-1, 1, (W, n, n))
+    C = np.conj(np.swapaxes(Y, -1, -2)) @ X
+    xr, xi, yr, yi = (torch.from_numpy(v).cuda()
+                      for v in (X.real, X.imag, Y.real, Y.imag))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)          # key, switch keys, `a` and noise
+    d2 = float(p.delta) ** 2
+
+    def keygen():
+        sk_ = ctx.generate_secret_key(gen)
+        return sk_, gr.gen_keys(sk_, gen)
+
+    def encrypt_both():
+        return (ctx.encrypt(ctx.encode(xr, xi), sk, gen),
+                ctx.encrypt(ctx.encode(yr, yi), sk, gen))
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()        # what earlier paths hold
+    be.reset_launches()
+    t0 = time.perf_counter()
+    sk, ks = keygen()
+    ctX, ctY = encrypt_both()
+    tt = hm.matmul_tensor(ctX, ctY)
+    ct_out = gr.relinearize(tt, ks)
+    dr, di = ctx.decrypt_and_decode(ct_out, sk, delta_override=d2)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(be.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    key_bytes = sum(k.numel() * k.element_size() for part in ks for k in part)
+    out = dr.cpu().numpy() + 1j * di.cpu().numpy()
+    br, bi = ctx.decode(hm.decrypt_tensor_fn(tt, sk), delta_override=d2)
+    base = br.cpu().numpy() + 1j * bi.cpu().numpy()
+    err = float(np.abs(out - C).max())
+    base_err = float(np.abs(base - C).max())
+    log(f"[gl2] first call {first_s:.2f} s; max |C - Y^H X| = {err:.3e}, "
+        f"two-sided opening {base_err:.3e} (limit {2 * base_err + 0.1:.3e}); "
+        f"switch keys {key_bytes} B; max_memory_allocated {peak} B, of which "
+        f"{peak - held} B above what was held before the path; "
+        f"launches {launches}")
+    shape = (len(p.moduli), W, n, 2 * n)
+    if tuple(ct_out.b.shape) != shape or tuple(ct_out.a.shape) != shape:
+        raise AssertionError(f"gl2 output ciphertext {tuple(ct_out.b.shape)}, "
+                             f"expected {shape}")
+    if out.shape != C.shape or not np.isfinite(out).all():
+        raise AssertionError("gl2 decoded output has the wrong shape or "
+                             "non-finite values")
+    if not err < 2 * base_err + 0.1:
+        raise AssertionError(f"gl2 GEMM err {err} >= 2 * {base_err} + 0.1")
+
+    phases = {}
+    for name, fn in (("keygen", keygen), ("encode_encrypt", encrypt_both),
+                     ("tensor", lambda: hm.matmul_tensor(ctX, ctY)),
+                     ("relinearize", lambda: gr.relinearize(tt, ks)),
+                     ("decrypt_decode", lambda: ctx.decrypt_and_decode(
+                         ct_out, sk, delta_override=d2))):
+        phases[name] = statistics.median(event_ms(fn) for _ in range(3))
+    log("[gl2] phase ms (median of 3 after the first call, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+
+    sy_b, sy_a = hm._ry_map(hm._sigma(ctY.b)), hm._ry_map(hm._sigma(ctY.a))
+    x_b, x_a = hm._tw(ctX.b), hm._tw(ctX.a)
+    ops = [t.contiguous() for t in (sy_b, sy_a, x_b, x_a)]
+    del tt, ct_out, ks
+    torch.cuda.empty_cache()
+    rows = [check_kernel(
+        "gemm2x2 (K7, gl2 GEMM tensor)", "gemm2x2",
+        "matrix_fhe_tpu_torch/csrc/gemm2x2.cu",
+        "matrix_fhe_tpu/ops/pallas_cgemm.py:266",
+        lambda: hm._gemm.kernel(*ops), lambda: hm._gemm.plain(*ops))]
+    del ops, sy_b, sy_a, x_b, x_a
+    k2 = ctx.xntt._mul_s
+    a_rows = ctX.a.reshape(len(p.moduli), -1, 2 * n)
+    rows.append(check_kernel(
+        "ntt_mul_ntt (K2, gl2 ring 2n = 128)", "ntt_mul_ntt",
+        "matrix_fhe_tpu_torch/csrc/ntt_mul_ntt.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1851",
+        lambda: k2.kernel(a_rows, sk.s_mont), lambda: k2.plain(a_rows, sk.s_mont)))
+    del a_rows
+    # K1 over the 14-limb QP basis (55-bit P prime included) as relinearize
+    # and keygen run it: the W-CRT of a [W, 2n, 2n] digit, and one 2n-point
+    # pass of the 2D X-NTT
+    m = 2 * n
+    d_w = random_residues(rc.qp_moduli, (W, m * m), gen)
+    rows.append(check_kernel(
+        f"stage (K1, QP W-CRT forward, {len(rc.qp_moduli)} limbs)", "stage",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
+        lambda: rc.wt_qp._fwd.kernel(d_w), lambda: rc.wt_qp._fwd.plain(d_w)))
+    d_x = d_w.reshape(len(rc.qp_moduli), W * m, m)
+    rows.append(check_kernel(
+        f"stage (K1, QP X-NTT, {m} points)", "stage",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
+        lambda: rc.xntt_qp._fwd.kernel(d_x), lambda: rc.xntt_qp._fwd.plain(d_x)))
+    del d_w, d_x
+    # K4 on the encode's inverse tables (Encoder.idft2_exact and
+    # WTransform.dft_inverse_pair) at [W, n, n]
+    from matrix_fhe_tpu_torch.ops.fpmatmul import (fp_cmatmul_kernel,
+                                                   fp_cmatmul_plain)
+    for label, fp, k, cols in (
+            ("inverse sigma sandwich", ctx.encoder._fp_vi, n, W * n),
+            ("W-IDFT", ctx.wt._fp_idft, W, n * n)):
+        wr, wi = (torch.randint(-(1 << 37), 1 << 37, (k, cols), generator=gen,
+                                device="cuda", dtype=torch.int64)
+                  for _ in range(2))
+        rows.append(check_kernel(
+            f"fp_cmatmul (K4, gl2 {label})", "fp_cmatmul",
+            "matrix_fhe_tpu_torch/csrc/fp_cmatmul.cu",
+            "matrix_fhe_tpu/ops/fpmatmul.py:129",
+            lambda fp=fp, wr=wr, wi=wi: fp_cmatmul_kernel(fp.tr, fp.ti, wr, wi),
+            lambda fp=fp, wr=wr, wi=wi: fp_cmatmul_plain(fp.tr, fp.ti, wr, wi)))
+    for row in rows:
+        row["launches"] = launches.get(row.pop("key"), 0)
+
+    # a tiny gl2 GEMM with keys and ciphertexts made on the CPU, on the card
+    # and on the CPU's plain path: the same bits
+    from matrix_fhe_tpu_torch.models.he2 import Ciphertext2, SecretKey2
+    from matrix_fhe_tpu_torch.models.he_matmul2 import GemmRelinKey
+    pt = get_params("tiny")
+    cpu = Gl2Context(pt)
+    gr_cpu = Gl2GemmRelin(HEMatmul2(cpu))
+    gr_gpu = Gl2GemmRelin(HEMatmul2(Gl2Context(pt, device="cuda")))
+    g = torch.Generator().manual_seed(5)
+    r2 = np.random.default_rng(5)
+    sk_c = cpu.generate_secret_key(g)
+    cts_c = [cpu.encrypt(cpu.encode(
+        torch.from_numpy(r2.uniform(-1, 1, (pt.phi, pt.n, pt.n))),
+        torch.from_numpy(r2.uniform(-1, 1, (pt.phi, pt.n, pt.n)))), sk_c, g)
+        for _ in range(2)]
+    ks_c = gr_cpu.gen_keys(sk_c, g)
+    want = gr_cpu.matmul(*cts_c, ks_c)
+    got = gr_gpu.matmul(*(Ciphertext2(*(t.cuda() for t in ct)) for ct in cts_c),
+                        GemmRelinKey(*(tuple(k.cuda() for k in part)
+                                       for part in ks_c)))
+    dec_c = cpu.decrypt_and_decode(want, sk_c, delta_override=pt.delta ** 2)
+    dec_g = gr_gpu.ctx.decrypt_and_decode(
+        got, SecretKey2(*(t.cuda() for t in sk_c)), delta_override=pt.delta ** 2)
+    same = (torch.equal(got.b.cpu(), want.b) and torch.equal(got.a.cpu(), want.a)
+            and all(torch.equal(x.cpu(), y) for x, y in zip(dec_g, dec_c)))
+    if not same:
+        raise AssertionError("tiny gl2 GEMM on the card differs from the CPU path")
+    log("[check] tiny gl2 GEMM (tensor, relinearize, decode): card == CPU "
+        "plain path, bit for bit")
+
+    summary = {"ref_gl2_err": err, "ref_gl2_base_err": base_err,
+               "ref_gl2_first_call_s": first_s,
+               "ref_gl2_switch_key_bytes": key_bytes,
+               "ref_gl2_max_memory_allocated": peak,
+               "ref_gl2_memory_above_held": peak - held}
+    summary.update({f"ref_gl2_{k}_ms": v for k, v in phases.items()})
+    return rows, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available")
@@ -411,6 +608,12 @@ def main() -> int:
     mm_rows, mm_summary = matmul_path()
     rows += mm_rows
     summary.update(mm_summary)
+    torch.cuda.empty_cache()
+
+    # -- path 4: the gl2 ciphertext GEMM at ref (K7, K2 at 2n = 128) --------
+    gl2_rows, gl2_summary = gl2_path()
+    rows += gl2_rows
+    summary.update(gl2_summary)
     for row in rows:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its path")

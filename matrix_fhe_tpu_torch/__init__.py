@@ -15,7 +15,9 @@ bit by tests/test_torch_*.py.
     tensor takes the plain version, a CUDA tensor the kernel.
   * A context lives on one device: init_he_backend(name, device=...).
   * Beside the roundtrip: the homomorphic matrix product C = Y^H X
-    (HEMatmul, the trace GEMM) and the large-N four-step NTT
+    (HEMatmul, the trace GEMM), its ciphertext-in / ciphertext-out form
+    on the gl2 double ring (Gl2Context, HEMatmul2, Gl2GemmRelin: the 2x2
+    GEMM tensor and its relinearization) and the large-N four-step NTT
     (ops/ntt_large.FourStepNTT).
 
 The package imports torch, numpy and the standard library, never jax.
@@ -31,6 +33,9 @@ _LAZY = {
     "HEContext": ".models.he",
     "init_he_backend": ".models.he",
     "HEMatmul": ".models.he_matmul",
+    "Gl2Context": ".models.he2",
+    "HEMatmul2": ".models.he_matmul2",
+    "Gl2GemmRelin": ".models.he_matmul2",
 }
 
 

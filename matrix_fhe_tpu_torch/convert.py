@@ -1,7 +1,8 @@
 """JAX package state -> port state.
 
 Turns the uint64 arrays of matrix_fhe_tpu objects (secret keys,
-ciphertexts, homomorphic-GEMM tensors, tables) into the port's int64
+ciphertexts, homomorphic-GEMM tensors and switch keys of both rings,
+tables) into the port's int64
 tensors on a given device, so that both packages can compute on the same
 key and ciphertexts.  Objects are read through their attributes and
 np.asarray, so this module does not import jax.  Residues are canonical
@@ -16,7 +17,9 @@ import numpy as np
 import torch
 
 from .models.he import Ciphertext, SecretKey
+from .models.he2 import Ciphertext2, SecretKey2
 from .models.he_matmul import MatmulTensor
+from .models.he_matmul2 import GemmRelinKey, GemmTensor2
 
 
 def residues(x, device="cpu") -> torch.Tensor:
@@ -42,6 +45,31 @@ def ciphertext(ct, device="cpu") -> Ciphertext:
 def matmul_tensor(tt, device="cpu") -> MatmulTensor:
     """matrix_fhe_tpu MatmulTensor -> port MatmulTensor (eight [L, W, n, n])."""
     return MatmulTensor(*(residues(x, device) for x in tt))
+
+
+def secret_key2(sk, device="cpu") -> SecretKey2:
+    """matrix_fhe_tpu SecretKey2 -> port SecretKey2 (s_mont [L, W, 2n],
+    s_sign [W, 2n] int8)."""
+    sign = np.asarray(sk.s_sign).astype(np.int8)
+    return SecretKey2(residues(sk.s_mont, device),
+                      torch.from_numpy(sign.copy()).to(device))
+
+
+def ciphertext2(ct, device="cpu") -> Ciphertext2:
+    """matrix_fhe_tpu Ciphertext2 -> port Ciphertext2 (b, a) [L, W, y, 2n]."""
+    return Ciphertext2(b=residues(ct.b, device), a=residues(ct.a, device))
+
+
+def gemm_tensor2(tt, device="cpu") -> GemmTensor2:
+    """matrix_fhe_tpu GemmTensor2 -> port GemmTensor2 (four [L, W, 2n, 2n])."""
+    return GemmTensor2(*(residues(x, device) for x in tt))
+
+
+def gemm_relin_key(ks, device="cpu") -> GemmRelinKey:
+    """matrix_fhe_tpu GemmRelinKey -> port GemmRelinKey (per-digit
+    [Lqp, W, 2n, 2n] in the same storage form)."""
+    return GemmRelinKey(*(tuple(residues(x, device) for x in part)
+                          for part in ks))
 
 
 def tables(t, device="cpu") -> dict:

@@ -8,8 +8,9 @@ integer shift-rounds, the encode quantize works on the words, and decode
 reconstructs f64 once at the end.  The Delta^2 decode of homomorphic
 products uses the exact big-int dequantize and `dft2_exact`, the sandwich
 with an f64 reconstruction after each K4 half (the JAX route with the
-fixed-point transforms on).  The f64 `idft2` / `dft2` are the plain
-complex128 sandwiches, kept for tests.
+fixed-point transforms on); the gl2 encode uses its inverse twin
+`idft2_exact`.  The f64 `idft2` / `dft2` are the plain complex128
+sandwiches, kept for tests.
 """
 
 from __future__ import annotations
@@ -90,7 +91,17 @@ class Encoder:
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """V E V^T of an f64 pair [W, n, n], each half an exact fixed-point
         matmul (K4) reconstructed to f64 (the JAX _sandwich with fp)."""
-        fp = self._fp_v
+        return self._sandwich_exact(self._fp_v, e_re, e_im)
+
+    def idft2_exact(self, m_re: torch.Tensor, m_im: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """V^-1 M V^-T of an f64 pair [W, n, n], each half an exact
+        fixed-point matmul (K4) reconstructed to f64: the JAX Encoder.idft2
+        with the fixed-point transforms on (encoder.py:72-98 there)."""
+        return self._sandwich_exact(self._fp_vi, m_re, m_im)
+
+    @staticmethod
+    def _sandwich_exact(fp, e_re, e_im):
         W, n = e_re.shape[0], e_re.shape[-1]
         mr = e_re.to(F64).transpose(0, 1).reshape(n, -1)
         mi = e_im.to(F64).transpose(0, 1).reshape(n, -1)

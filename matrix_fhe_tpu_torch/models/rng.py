@@ -98,9 +98,12 @@ def gaussian_noise(params: GLParams, device="cpu") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def fresh_uniform_a(gen: torch.Generator, params: GLParams,
-                    device="cpu") -> torch.Tensor:
-    """Uniform residues [L, W, n, n], drawn on the generator's device."""
-    shape = (params.phi, params.n, params.n)
+                    device="cpu", shape=None) -> torch.Tensor:
+    """Uniform residues [L, *shape] (default shape (W, n, n)), drawn on the
+    generator's device limb by limb in limb order.  Rectangular frames,
+    such as the gl2 ring's [W, n, 2n] and its 2D tensor's [W, 2n, 2n],
+    pass `shape` (matrix_fhe_tpu/models/rng.py:203-211)."""
+    shape = (params.phi, params.n, params.n) if shape is None else tuple(shape)
     return torch.stack([
         torch.randint(0, int(q), shape, generator=gen, dtype=I64,
                       device=gen.device)
@@ -115,9 +118,10 @@ def fresh_ternary_secret(gen: torch.Generator, params: GLParams,
 
 
 def fresh_gaussian_noise(gen: torch.Generator, params: GLParams,
-                         device="cpu") -> torch.Tensor:
-    """Rounded Gaussian (sigma) [L, W, n, n], the same integer in every
-    limb."""
-    z = torch.randn((params.phi, params.n, params.n), generator=gen,
-                    dtype=torch.float64, device=gen.device) * params.sigma
+                         device="cpu", shape=None) -> torch.Tensor:
+    """Rounded Gaussian (sigma) [L, *shape] (default shape (W, n, n)), the
+    same integer in every limb (matrix_fhe_tpu/models/rng.py:223-233)."""
+    shape = (params.phi, params.n, params.n) if shape is None else tuple(shape)
+    z = torch.randn(shape, generator=gen, dtype=torch.float64,
+                    device=gen.device) * params.sigma
     return _residues(llround(z).to(device), params)

@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("stage.cu", "ntt_mul_ntt.cu", "inv_compose.cu", "fp_cmatmul.cu",
-           "four_step_ntt.cu", "cgemm.cu")
+           "four_step_ntt.cu", "cgemm.cu", "gemm2x2.cu")
 HEADERS = ("modarith.cuh",)
 LIBRARY = os.path.join(BUILD, "libmfhe_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,7 +50,11 @@ _SIGNATURES = {
     "mf_fp_cmatmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mf_four_step": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "mf_cgemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mf_gemm2x2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mf_ntt_mul_ntt_smem": [_I],
 }
+# host-side queries that return something other than a CUDA error code
+_RESTYPES = {"mf_ntt_mul_ntt_smem": _LL}
 
 
 def reset_launches() -> None:
@@ -113,7 +117,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -1,4 +1,6 @@
-"""Kernel K6: the trace GEMM, C = scale * A @ B^T complex mod q.
+"""Kernels K6 and K7: the modular GEMMs of the two homomorphic products.
+
+K6 is the trace GEMM, C = scale * A @ B^T complex mod q.
 
 Counterpart of matrix_fhe_tpu/ops/pallas_cgemm.py (SlicedCGemm), the fused
 batched complex modular GEMM under models/trace.trace_gemm.  Operands are
@@ -11,6 +13,16 @@ contraction runs over the last axis of both:
 A CUDA tensor takes csrc/cgemm.cu; a CPU tensor takes the plain version,
 the JAX XLA route's order of operations (four real modular GEMMs, mod-q
 sub/add, times scale) on exact float64-digit matmuls (ops/modmatmul.py).
+
+K7 is the gl2 ciphertext GEMM's tensor step (Gemm2x2, counterpart of
+matrix_fhe_tpu/ops/pallas_cgemm.py SlicedGemm2x2): four real modular GEMMs
+contracting the second-to-last axis of [L, W, y, m] operands,
+
+    E_ij[l, w, a, b] = scale * sum_y U_i[l, w, y, a] V_j[l, w, y, b] mod q_l,
+
+csrc/gemm2x2.cu on CUDA tensors, and on CPU tensors the plain version: four
+exact float64-digit modular matmuls times scale, the function of JAX's
+XLA oracle HEMatmul2._mod_gemm.
 """
 
 from __future__ import annotations
@@ -73,3 +85,48 @@ class CGemm:
         be.launch("cgemm", "mf_cgemm", a_re.device, a_re, a_im, b_re, b_im,
                   self.consts, out[0], out[1], L, W, n)
         return out[0], out[1]
+
+
+class Gemm2x2:
+    """K7 for one modulus chain and one scale, constants on `device`."""
+
+    def __init__(self, moduli: Sequence[int], scale: int, device):
+        self.moduli = tuple(int(q) for q in moduli)
+        self.scale = int(scale)
+        self.bits = _bits(self.moduli, 1)
+        self.consts = kernel_consts(self.moduli, device, scale=self.scale)
+        self.q = moduli_col(self.moduli, 3, device)
+        self.scale_q = moduli_col([self.scale % q for q in self.moduli], 3,
+                                  device)
+
+    def __call__(self, u1, u2, v1, v2) -> Tuple[torch.Tensor, ...]:
+        if be.on_device(u1, u2, v1, v2, self.q):
+            return self.kernel(u1, u2, v1, v2)
+        return self.plain(u1, u2, v1, v2)
+
+    def plain(self, u1, u2, v1, v2) -> Tuple[torch.Tensor, ...]:
+        L, W, y, m = u1.shape
+        q_lw = self.q.expand(L, W, 1, 1).reshape(L * W, 1, 1)
+
+        def tn(u, v):       # (u^T @ v) mod q per (limb, lane), times scale
+            e = modmatmul(u.reshape(L * W, y, m).transpose(1, 2),
+                          v.reshape(L * W, y, m), q_lw, self.bits, "left")
+            return mul_mod(e.reshape(L, W, m, m), self.scale_q, self.q)
+
+        return tn(u1, v1), tn(u1, v2), tn(u2, v1), tn(u2, v2)
+
+    def kernel(self, u1, u2, v1, v2) -> Tuple[torch.Tensor, ...]:
+        L = len(self.moduli)
+        if u1.dim() != 4 or u1.shape[0] != L:
+            raise ValueError(f"operands must be [L, W, y, m], got {tuple(u1.shape)}")
+        W, y, m = u1.shape[1:]
+        if y > 1 << 16:
+            raise ValueError(f"contraction of {y} terms: the 128-bit sums need y <= 2^16")
+        if L * W > 65535:
+            raise ValueError(f"{L} limbs x {W} lanes exceed the kernel grid (65535)")
+        for name, t in (("u1", u1), ("u2", u2), ("v1", v1), ("v2", v2)):
+            be.check(t, name, I64, (L, W, y, m))
+        out = torch.empty((4, L, W, m, m), dtype=I64, device=u1.device)
+        be.launch("gemm2x2", "mf_gemm2x2", u1.device, u1, u2, v1, v2,
+                  self.consts, out, L, W, y, m)
+        return tuple(out.unbind(0))

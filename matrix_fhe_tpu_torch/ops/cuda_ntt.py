@@ -21,6 +21,7 @@ from .modmath import kernel_consts, moduli_col, mul_mod, to_signed64
 from .modmatmul import modmatmul
 
 I64 = torch.int64
+SMEM_LIMIT = 232448     # shared memory one block may hold on Hopper (227 KB)
 
 
 def _as_i64(table_u64: np.ndarray, device) -> torch.Tensor:
@@ -98,7 +99,10 @@ class NttMulNtt:
 
     a [L, R, n] X-coefficient rows, s_mont [L, W, n] in storage form
     s * 2^64 mod q; row r uses key row r // (R // W).  Both tables follow
-    the out = T @ in convention (fwd [k, x], inv [x, k])."""
+    the out = T @ in convention (fwd [k, x], inv [x, k]).  The kernel holds
+    one table in shared memory at a time (n <= 128: the gl2 ring's 2n); the
+    wrapper refuses before launching any n whose shared memory would exceed
+    one block's 227 KB."""
 
     def __init__(self, fwd_u64: np.ndarray, inv_u64: np.ndarray,
                  moduli: Sequence[int], device):
@@ -125,6 +129,12 @@ class NttMulNtt:
 
     def kernel(self, a: torch.Tensor, s_mont: torch.Tensor) -> torch.Tensor:
         L, n, _ = self.fwd.shape
+        if be.library().mf_ntt_mul_ntt_smem(n) == 0:
+            raise ValueError(
+                f"K2 takes no ring of n = {n}: it needs one n x n table "
+                f"({n * n * 8} B) and its row buffers in the shared memory "
+                f"of one block, at most {SMEM_LIMIT} B on Hopper, and n "
+                "dividing its thread count")
         R, W = a.shape[1], s_mont.shape[1]
         if R % W:
             raise ValueError(f"rows {R} not a multiple of key rows {W}")

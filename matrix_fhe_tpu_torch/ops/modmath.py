@@ -83,6 +83,22 @@ def find_eta(q: int, p: int, f1: int, f2: int) -> int:
     raise ValueError("failed to find eta for W-CRT")
 
 
+def powers(root: int, count: int, q: int) -> np.ndarray:
+    """root^e mod q for e in [0, count) as Python ints (object array),
+    from two short Python loops and one outer product."""
+    step = 1 << (count.bit_length() // 2)
+    lo = [1]
+    for _ in range(step - 1):
+        lo.append(lo[-1] * root % q)
+    big = pow(root, step, q)
+    hi = [1]
+    for _ in range(-(-count // step) - 1):
+        hi.append(hi[-1] * big % q)
+    out = (np.array(hi, dtype=object)[:, None]
+           * np.array(lo, dtype=object)[None, :]) % q
+    return out.reshape(-1)[:count]
+
+
 def kernel_consts(moduli: Sequence[int], device, scale: int = 1) -> torch.Tensor:
     """[L, 3] int64 (bit patterns of uint64) per-limb constants
     (q, -q^-1 mod 2^64, scale * 2^128 mod q), the layout the kernels read.

@@ -3,9 +3,10 @@
 Counterpart of matrix_fhe_tpu/ops/ntt.py (XNTT) on int64 residues.  A full
 X transform is one batched [rows, n] @ [n, n]^T modular matmul per limb
 (kernel K1, side "right"), and mul_s is the fused
-iNTT_X(NTT_X(a) (*) s) of encrypt and decrypt (kernel K2).  The TPU's
-128-lane block-diagonal packing has no counterpart: it only filled the
-TPU's vector lanes.
+iNTT_X(NTT_X(a) (*) s) of encrypt and decrypt (kernel K2).  The "gl2"
+ring is the GL ring's integral double form Z[X]/(X^{2n}+1), a 2n-point
+transform with the same kernels.  The TPU's 128-lane block-diagonal
+packing has no counterpart: it only filled the TPU's vector lanes.
 """
 
 from __future__ import annotations
@@ -13,16 +14,17 @@ from __future__ import annotations
 import torch
 
 from ..config import GLParams
-from ..tables import GLTables, build_tables
+from ..tables import GLTables, build_gl2_x_tables, build_tables
 from .cuda_ntt import NttMulNtt, Stage
 
 RING_NEGACYCLIC = "nega"  # X^n + 1 (production / phantom parity ring)
 RING_GL = "gl"            # X^n = psi4n^n (= +-i) GL twist ring
+RING_GL2 = "gl2"          # the GL ring's integral double form X^{2n} + 1
 
 
 class XNTT:
-    """Forward/inverse length-n transform along the trailing axis of
-    [L, ..., n] int64 residues, batched over everything else."""
+    """Forward/inverse length-n (gl2: 2n) transform along the trailing axis
+    of [L, ..., n] int64 residues, batched over everything else."""
 
     def __init__(self, params: GLParams, ring: str = RING_NEGACYCLIC,
                  tables: GLTables | None = None, device="cpu"):
@@ -31,6 +33,8 @@ class XNTT:
             fwd, inv = t.x_fwd_nega, t.x_inv_nega
         elif ring == RING_GL:
             fwd, inv = t.x_fwd_gl, t.x_inv_gl
+        elif ring == RING_GL2:
+            fwd, inv = build_gl2_x_tables(t)
         else:
             raise ValueError(f"unknown ring {ring!r}")
         self._fwd = Stage(fwd, params.moduli, "right", device)

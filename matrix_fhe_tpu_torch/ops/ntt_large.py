@@ -29,7 +29,7 @@ import torch
 
 from ..config import generate_primes_1mod  # noqa: F401  (the JAX module's export)
 from . import _backend as be
-from .modmath import kernel_consts, moduli_col, mul_mod, to_mont
+from .modmath import kernel_consts, moduli_col, mul_mod, powers, to_mont
 from .modmatmul import modmatmul
 
 I64 = torch.int64
@@ -81,22 +81,6 @@ def _factorize(x: int) -> Tuple[int, ...]:
     return tuple(fs)
 
 
-def _powers(root: int, count: int, q: int) -> np.ndarray:
-    """root^e mod q for e in [0, count) as Python ints (object array),
-    from two short Python loops and one outer product."""
-    step = 1 << (count.bit_length() // 2)
-    lo = [1]
-    for _ in range(step - 1):
-        lo.append(lo[-1] * root % q)
-    big = pow(root, step, q)
-    hi = [1]
-    for _ in range(-(-count // step) - 1):
-        hi.append(hi[-1] * big % q)
-    out = (np.array(hi, dtype=object)[:, None]
-           * np.array(lo, dtype=object)[None, :]) % q
-    return out.reshape(-1)[:count]
-
-
 def _limb_tables(plan: FourStepPlan, q: int) -> Dict[str, np.ndarray]:
     """One limb's tables (canonical, not Montgomery), as uint64 arrays."""
     n, n1, n2 = plan.n, plan.n1, plan.n2
@@ -104,7 +88,7 @@ def _limb_tables(plan: FourStepPlan, q: int) -> Dict[str, np.ndarray]:
     if (q - 1) % order:
         raise ValueError(f"modulus {q} lacks order-{order} root")
     g = _find_generator(q)
-    pw = _powers(pow(g, (q - 1) // n, q), n, q)       # w_N^e, e < N
+    pw = powers(pow(g, (q - 1) // n, q), n, q)       # w_N^e, e < N
     a1, a2 = np.arange(n1), np.arange(n2)
     out = {
         # stage tables t[k, i] = w^(+-k i); w1 = w_N^n2, w2 = w_N^n1
@@ -118,7 +102,7 @@ def _limb_tables(plan: FourStepPlan, q: int) -> Dict[str, np.ndarray]:
     }
     n_inv = pow(n, -1, q)
     if plan.negacyclic:
-        ps = _powers(pow(g, (q - 1) // (2 * n), q), n, q)   # psi^i, i < N
+        ps = powers(pow(g, (q - 1) // (2 * n), q), n, q)   # psi^i, i < N
         # psi^-i = psi^(2N - i) = -psi^(N - i) for i >= 1
         ps_inv = np.concatenate([np.array([1], dtype=object),
                                  (q - ps[:0:-1]) % q])

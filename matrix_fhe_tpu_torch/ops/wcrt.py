@@ -81,6 +81,14 @@ class WTransform:
                               im.reshape(W, -1).to(torch.float64))
         return yr.reshape(re.shape), yi.reshape(re.shape)
 
+    def dft_inverse_pair(self, re: torch.Tensor, im: torch.Tensor):
+        """W-IDFT of an f64 pair [W, ...] eval -> coeff, reconstructed to
+        f64 (the JAX dft_inverse_pair on its fixed-point route)."""
+        W = re.shape[0]
+        yr, yi = self._fp_idft(re.reshape(W, -1).to(torch.float64),
+                               im.reshape(W, -1).to(torch.float64))
+        return yr.reshape(re.shape), yi.reshape(re.shape)
+
     def dft_forward_words(self, re: torch.Tensor, im: torch.Tensor):
         """W-DFT of an f64 pair [W, ...] as fixed-point words [W, M]."""
         W = re.shape[0]

@@ -143,10 +143,13 @@ def test_fresh_randomness_pipeline():
 def test_package_never_imports_jax():
     code = ("import sys, matrix_fhe_tpu_torch as m; "
             "from matrix_fhe_tpu_torch import convert; "
-            "from matrix_fhe_tpu_torch.ops import ntt_large, crt, gint, cgemm; "
-            "from matrix_fhe_tpu_torch.models import trace, he_matmul; "
+            "from matrix_fhe_tpu_torch.ops import ntt_large, crt, gint, cgemm, "
+            "rns_ext; "
+            "from matrix_fhe_tpu_torch.models import trace, he_matmul, he2, "
+            "he_matmul2, keyswitch; "
             "ctx = m.init_he_backend('tiny'); ctx.generate_secret_key(); "
             "m.HEMatmul(m.init_he_backend('tiny', ring='gl')); "
+            "m.Gl2GemmRelin(m.HEMatmul2(m.Gl2Context(m.get_params('tiny')))); "
             "bad = [k for k in sys.modules "
             "if k == 'jax' or k.startswith(('jax.', 'matrix_fhe_tpu.')) "
             "or k == 'matrix_fhe_tpu']; "

@@ -1,24 +1,29 @@
-"""Kernels K1-K4 of the PyTorch port against the JAX package's Pallas kernels.
+"""Kernels K1-K4 and K7 of the PyTorch port against the JAX package's
+Pallas kernels.
 
 On the CPU each port wrapper runs its plain PyTorch version; the JAX side
 runs the Pallas kernels in interpret mode (SlicedStage, SlicedNttMulNtt,
-SlicedInvCompose, ExactComplexMatmul), on the same numpy inputs.  Residues
-and fixed-point words must match bit for bit.  The `cuda`-marked cases hold
-each CUDA kernel against its plain version and skip without a GPU.
+SlicedInvCompose, ExactComplexMatmul, SlicedGemm2x2), on the same numpy
+inputs.  Residues and fixed-point words must match bit for bit.  The
+`cuda`-marked cases hold each CUDA kernel against its plain version and
+skip without a GPU.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from matrix_fhe_tpu.config import REF_P_MODULI, get_params
+from matrix_fhe_tpu.config import REF_P_MODULI, generate_ntt_primes, get_params
 from matrix_fhe_tpu.ops import ddfloat as jdd
 from matrix_fhe_tpu.ops import fpmatmul as jfp
 from matrix_fhe_tpu.ops import modmath as jmm
 from matrix_fhe_tpu.ops import pallas_ntt as pn
 from matrix_fhe_tpu.tables import build_tables
 from matrix_fhe_tpu_torch.ops import _backend
+from matrix_fhe_tpu_torch.ops.cgemm import Gemm2x2
 from matrix_fhe_tpu_torch.ops import ddfloat as tdd
 from matrix_fhe_tpu_torch.ops import fpmatmul as tfp
 from matrix_fhe_tpu_torch.ops import modmath as tmm
@@ -187,6 +192,28 @@ def test_fp_call_words_chain_matches(exact_exp2):
         tfp.ExactComplexMatmul.words_to_f64(tw2[0], tw2[2]).numpy())
 
 
+# -- K7 -----------------------------------------------------------------------
+
+def test_gemm2x2_plain_matches_sliced_interpret(monkeypatch):
+    """K7's plain version against SlicedGemm2x2 (MFHE_GEMM2=sliced, in
+    interpret mode on the CPU) on a 45 + 35-bit limb chain, which the JAX
+    class runs as two limb runs."""
+    from matrix_fhe_tpu.models.he2 import Gl2Context as JaxGl2Context
+    from matrix_fhe_tpu.models.he_matmul2 import HEMatmul2 as JaxHEMatmul2
+
+    monkeypatch.setenv("MFHE_GEMM2", "sliced")
+    m45 = (generate_ntt_primes(1, 45, P.n, P.p)
+           + generate_ntt_primes(2, 35, P.n, P.p))
+    jp = dataclasses.replace(P, name="tiny45x2", moduli=m45)
+    jhm = JaxHEMatmul2(JaxGl2Context(jp, use_pallas=False))
+    rng = np.random.default_rng(18)
+    ops = [residues(rng, m45, (jp.phi, jp.n, 2 * jp.n)) for _ in range(4)]
+    want = jhm._gemm2x2(*(jnp.asarray(x) for x in ops))
+    got = Gemm2x2(m45, jp.n, "cpu")(*(i64(x) for x in ops))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(u64(g), np.asarray(w))
+
+
 # -- exact helpers around the kernels ------------------------------------------
 
 @pytest.mark.parametrize("sh", [0, 1, 7, 31, 32, 33, 45, 63, 64, 70])
@@ -299,6 +326,39 @@ def test_cuda_ntt_mul_ntt_matches_plain(cuda, preset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 128])
+def test_cuda_ntt_mul_ntt_wide_rings(cuda, n):
+    """K2 at the ref X ring (n = 64) and the gl2 ring (n = 128) on a
+    45 + 35-bit chain, rows not a multiple of the block's, rep = 64 as in
+    the gl2 decrypt."""
+    moduli = get_params("ref").moduli[:2]
+    rng = np.random.default_rng(19)
+    fwd, inv = (residues(rng, moduli, (n, n)) for _ in range(2))
+    k2 = NttMulNtt(fwd, inv, moduli, cuda)
+    W, rep = 5, 64
+    a = i64(residues(rng, moduli, (W * rep, n))).to(cuda)
+    s = i64(residues(rng, moduli, (W, n))).to(cuda)
+    got = _launched("ntt_mul_ntt", lambda: k2(a, s))
+    assert torch.equal(got.cpu(), k2.plain(a, s).cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_ntt_mul_ntt_refuses_what_does_not_fit(cuda):
+    """n = 256 needs a 512 KB table in one block's shared memory (227 KB at
+    most): the wrapper raises before any launch."""
+    moduli = get_params("ref").moduli[:1]
+    rng = np.random.default_rng(20)
+    fwd, inv = (residues(rng, moduli, (256, 256)) for _ in range(2))
+    k2 = NttMulNtt(fwd, inv, moduli, cuda)
+    a = i64(residues(rng, moduli, (8, 256))).to(cuda)
+    s = i64(residues(rng, moduli, (2, 256))).to(cuda)
+    before = _backend.LAUNCHES["ntt_mul_ntt"]
+    with pytest.raises(ValueError, match="n = 256.*shared memory"):
+        k2(a, s)
+    assert _backend.LAUNCHES["ntt_mul_ntt"] == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("preset", ["tiny", "small"])
 def test_cuda_inv_compose_matches_plain(cuda, preset):
     p = get_params(preset)
@@ -362,3 +422,23 @@ def test_cuda_cgemm_matches_plain(cuda, preset):
         want = gemm.plain(*ops)
         assert torch.equal(got[0].cpu(), want[0].cpu())
         assert torch.equal(got[1].cpu(), want[1].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["tiny", "small"])
+def test_cuda_gemm2x2_matches_plain(cuda, preset):
+    """K7 at the gl2 tensor shape of a preset, and at m = 128 (the ref gl2
+    ring) with odd W, y not a multiple of the tile depth and a 55 + 45-bit
+    chain."""
+    p = get_params(preset)
+    rng = np.random.default_rng(21)
+    wide = REF_P_MODULI[:1] + get_params("ref").moduli[:1]    # 55, 45 bits
+    for moduli, lanes, y, m, scale in ((p.moduli, p.phi, p.n, 2 * p.n, p.n),
+                                       (wide, 3, 37, 128, 64)):
+        gemm = Gemm2x2(moduli, scale, cuda)
+        ops = [i64(residues(rng, moduli, (lanes, y, m))).to(cuda)
+               for _ in range(4)]
+        got = _launched("gemm2x2", lambda: gemm(*ops))
+        want = gemm.plain(*ops)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())
