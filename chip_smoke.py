@@ -21,12 +21,26 @@ and read just after:
      switch keys, encode, encrypt, tensor (K7), relinearize, decrypt and the
      Delta^2 decode (K1, K2 at 2n = 128, K4), error < 2 base_err + 0.1
      where base_err is the two-sided opening's; phase times and memory;
-     then a tiny gl2 GEMM on the card against the CPU plain path.
+     then a tiny gl2 GEMM on the card against the CPU plain path;
+  5. key switching and the leveled chain at ref (LeveledChain, the preset's
+     P, dnum = 4): examples/relinearize.py (keygen, two encrypts,
+     multiply_relinearize, noise < 2^25), examples/leveled.py's depth-2
+     circuit (multiply, rescale, multiply after mod_switch, rotate j = 2
+     with the full Galois set, decrypt) against the exact ring oracle
+     (< 2^40), a fresh complex pair (error < 1e-4), a tiny leveled circuit
+     on the card against the CPU, and the ks_phases table (K10a's twiddle
+     form with K1-K4);
+  6. the probes: python3 -m matrix_fhe_tpu_torch.scripts.micro_vpu (K11)
+     and micro_coissue (K12) at their default shapes, then each kernel
+     against its plain version on a reduced grid.
 
 Every kernel is held bit for bit against its plain PyTorch version at the
-shapes its path gives it, and both are timed.  Fails (nonzero exit, no
-result line) without a CUDA device, on a build or launch error, on any
-disagreement, or when a path's check fails.
+shapes its path gives it, and both are timed, with the least time the card
+could take for the same work (bytes at 3.35 TB/s, or 32-bit multiply-adds
+at K11's measured rate, counted from the SASS of K1's inner loop) and,
+where one PyTorch call computes the same function, that call's time.
+Fails (nonzero exit, no result line) without a CUDA device, on a build or
+launch error, on any disagreement, or when a path's check fails.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -34,8 +48,11 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -52,6 +69,10 @@ NTT_N, NTT_L, NTT_B = 1 << 16, 16, 128      # bench.py:94-96
 NTT_ITERS = 20
 CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core rate (data sheet)
+# 32-bit integer lanes: 64 a clock on each SM, half the 67 TFLOP/s fp32 rate
+INT32_OPS_PER_S = 33.5e12
 
 
 def log(msg: str) -> None:
@@ -89,22 +110,92 @@ def max_abs_diff(a, b) -> int:
     return int((a - b).abs().max())
 
 
-def check_kernel(name, key, source, replaces, kernel_fn, plain_fn, reps=5):
+def nbytes(x) -> int:
+    if isinstance(x, (tuple, list)):
+        return sum(nbytes(t) for t in x)
+    return x.numel() * x.element_size()
+
+
+def check_kernel(name, key, source, replaces, kernel_fn, plain_fn, inputs,
+                 work, reps=5, library_fn=None):
     """Hold one kernel against its plain version (bit-exact) and time both;
-    `key` names its launch counter."""
+    `key` names its launch counter, `inputs` are the tensors the function
+    reads (with the outputs, they make the bytes of the bound) and `work`
+    its operations by type ("products": 64 x 64 -> 128-bit products,
+    "int32", "int8")."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
     err = max_abs_diff(got, want)
     ms = cuda_ms(kernel_fn, reps)
     plain_ms = cuda_ms(plain_fn, max(1, reps // 2))
+    library_ms = None if library_fn is None else cuda_ms(library_fn, reps)
     log(f"[kernel] {name}: max_abs_err={err} kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
+        f"plain {plain_ms:.3f} ms"
+        + ("" if library_ms is None else f", library {library_ms:.3f} ms"))
     if err != 0:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return {"name": name, "key": key, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bytes": nbytes(inputs) + nbytes(got), "work": work}
+
+
+def stage_products(stage, data) -> int:
+    """64-bit products of one K1 / K10a call: L x rows x K x cols (plus one
+    per output for a twiddle, counted by the caller)."""
+    L, W, K = stage.table.shape
+    if stage.side == "left":
+        return L * W * K * data.shape[2]
+    if stage.side == "batched_left":
+        return L * data.shape[1] * W * K * data.shape[3]
+    return L * data.shape[1] * K * W
+
+
+def _sass_loops(lines):
+    """(start, end) address ranges of the backward branches in SASS."""
+    addr_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*)")
+    insts, loops = [], []
+    for line in lines:
+        m = addr_re.search(line)
+        if not m:
+            continue
+        addr, text = int(m.group(1), 16), m.group(2)
+        insts.append((addr, text))
+        b = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if b and int(b.group(1), 16) < addr:
+            loops.append((int(b.group(1), 16), addr))
+    return insts, loops
+
+
+def imads_per_product() -> float:
+    """32-bit multiply-adds (IMAD, IMAD.WIDE, IMAD.HI, IMAD.X; not the
+    IMAD.MOV / SHL / IADD forms) per 64 x 64 -> 128-bit product in the inner
+    loop of K1 (stage_kernel), from cuobjdump -sass of the built library:
+    the loop with the most of them, less its nested loops (the tile loads),
+    over its 16 x 4 x 4 = 256 products.  K2-K7 share the same product
+    helper (csrc/modarith.cuh)."""
+    from matrix_fhe_tpu_torch.ops import _backend as be
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", be.LIBRARY], check=True,
+                          capture_output=True, text=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next(f for f in funcs if f.split()[0].find("stage_kernel") >= 0)
+    insts, loops = _sass_loops(body.splitlines())
+
+    def is_imad(text):
+        op = text.split()[0] if not text.startswith("@") else text.split()[1]
+        return op.startswith("IMAD") and not any(
+            k in op for k in ("MOV", "SHL", "IADD"))
+
+    def count(lo, hi):
+        inner = [(a, b) for a, b in loops if lo <= a and b < hi
+                 and (a, b) != (lo, hi)]
+        return sum(1 for a, t in insts if lo <= a <= hi and is_imad(t)
+                   and not any(x <= a <= y for x, y in inner))
+
+    best = max(count(lo, hi) for lo, hi in loops)
+    return best / 256
 
 
 def kernel_checks(ctx, gen):
@@ -115,32 +206,38 @@ def kernel_checks(ctx, gen):
     W, n = p.phi, p.n
     wt, xntt = ctx.wt, ctx.xntt
     rows = []
+    L = len(p.moduli)
     d_w = random_residues(p.moduli, (W, n * n), gen)
     rows.append(check_kernel(
         "stage (K1, W-CRT forward)", "stage",
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
-        lambda: wt._fwd.kernel(d_w), lambda: wt._fwd.plain(d_w)))
+        lambda: wt._fwd.kernel(d_w), lambda: wt._fwd.plain(d_w),
+        [wt._fwd.table, d_w], {"products": stage_products(wt._fwd, d_w)}))
     d_x = random_residues(p.moduli, (W, n), gen)
     rows.append(check_kernel(
         "stage (K1, X-NTT)", "stage", "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
-        lambda: xntt._fwd.kernel(d_x), lambda: xntt._fwd.plain(d_x)))
+        lambda: xntt._fwd.kernel(d_x), lambda: xntt._fwd.plain(d_x),
+        [xntt._fwd.table, d_x], {"products": stage_products(xntt._fwd, d_x)}))
     a_rows = random_residues(p.moduli, (W * n, n), gen)
     s_mont = random_residues(p.moduli, (W, n), gen)
+    k2 = xntt._mul_s
     rows.append(check_kernel(
         "ntt_mul_ntt (K2)", "ntt_mul_ntt",
         "matrix_fhe_tpu_torch/csrc/ntt_mul_ntt.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1851",
-        lambda: xntt._mul_s.kernel(a_rows, s_mont),
-        lambda: xntt._mul_s.plain(a_rows, s_mont)))
+        lambda: k2.kernel(a_rows, s_mont), lambda: k2.plain(a_rows, s_mont),
+        [k2.fwd, k2.inv, a_rows, s_mont],
+        {"products": L * W * n * (2 * n * n + n)}))
     x_ev = random_residues(p.moduli, (W, 2 * n * n), gen)
+    k3 = wt._inv_compose
     rows.append(check_kernel(
         "inv_compose (K3)", "inv_compose",
         "matrix_fhe_tpu_torch/csrc/inv_compose.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1731",
-        lambda: wt._inv_compose.kernel(x_ev),
-        lambda: wt._inv_compose.plain(x_ev)))
+        lambda: k3.kernel(x_ev), lambda: k3.plain(x_ev), [k3.table, x_ev],
+        {"products": L * W * W * 2 * n * n}))
     for label, fp, k, m in (("sigma sandwich", ctx.encoder._fp_vi, n, W * n),
                             ("W-DFT", wt._fp_dft, W, n * n)):
         xr, xi = (torch.randint(-(1 << 37), 1 << 37, (k, m), generator=gen,
@@ -151,7 +248,8 @@ def kernel_checks(ctx, gen):
             "matrix_fhe_tpu_torch/csrc/fp_cmatmul.cu",
             "matrix_fhe_tpu/ops/fpmatmul.py:129",
             lambda fp=fp, xr=xr, xi=xi: fp_cmatmul_kernel(fp.tr, fp.ti, xr, xi),
-            lambda fp=fp, xr=xr, xi=xi: fp_cmatmul_plain(fp.tr, fp.ti, xr, xi)))
+            lambda fp=fp, xr=xr, xi=xi: fp_cmatmul_plain(fp.tr, fp.ti, xr, xi),
+            [fp.tr, fp.ti, xr, xi], {"products": 4 * k * k * m}))
     return rows
 
 
@@ -198,17 +296,24 @@ def ntt_path(bits: int, gen):
     del a
 
     log(f"[ntt{bits}] K5 against its plain version at B={B}")
+    kt = ntt._kernel_tables
+    # two passes of radix-2 butterflies, N/2 log2 N Montgomery products,
+    # and two twiddle passes of N; a Montgomery product is two 64 x 64-bit
+    # products (the value's, and the reduction's low and high halves)
+    products = L * B * 2 * (N // 2 * (N.bit_length() - 1) + 2 * N)
+    tables = [t for k, t in kt.items() if k != "consts"]
     rows = [check_kernel(
         f"four_step_ntt (K5, forward, {bits}-bit)", "four_step_fwd",
         "matrix_fhe_tpu_torch/csrc/four_step_ntt.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1430",
-        lambda: ntt.forward_kernel(x), lambda: ntt.forward_plain(x), reps=10),
+        lambda: ntt.forward_kernel(x), lambda: ntt.forward_plain(x),
+        [x] + tables, {"products": products}, reps=10),
         check_kernel(
         f"four_step_ntt (K5, inverse, {bits}-bit)", "four_step_inv",
         "matrix_fhe_tpu_torch/csrc/four_step_ntt.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1430",
         lambda: ntt.inverse_kernel(spec), lambda: ntt.inverse_plain(spec),
-        reps=10)]
+        [spec] + tables, {"products": products}, reps=10)]
     for row in rows:
         row["launches"] = launches.get(row.pop("key"), 0)
     summary = {f"ntt{bits}_per_sec": L * B / (chained_ms / 1e3),
@@ -282,7 +387,8 @@ def matmul_path():
     row = check_kernel("cgemm (K6, trace GEMM)", "cgemm",
                        "matrix_fhe_tpu_torch/csrc/cgemm.cu",
                        "matrix_fhe_tpu/ops/pallas_cgemm.py:41",
-                       lambda: gemm.kernel(*ops), lambda: gemm.plain(*ops))
+                       lambda: gemm.kernel(*ops), lambda: gemm.plain(*ops),
+                       ops, {"products": 4 * len(p.moduli) * W * n ** 3})
     row["launches"] = launches.get(row.pop("key"), 0)
     summary = {"ref_matmul_err": err, "ref_matmul_tensor_ms": tensor_ms,
                "ref_matmul_decrypt_decode_ms": decode_ms,
@@ -393,36 +499,43 @@ def gl2_path():
     ops = [t.contiguous() for t in (sy_b, sy_a, x_b, x_a)]
     del tt, ct_out, ks
     torch.cuda.empty_cache()
+    L = len(p.moduli)
     rows = [check_kernel(
         "gemm2x2 (K7, gl2 GEMM tensor)", "gemm2x2",
         "matrix_fhe_tpu_torch/csrc/gemm2x2.cu",
         "matrix_fhe_tpu/ops/pallas_cgemm.py:266",
-        lambda: hm._gemm.kernel(*ops), lambda: hm._gemm.plain(*ops))]
+        lambda: hm._gemm.kernel(*ops), lambda: hm._gemm.plain(*ops),
+        ops, {"products": 4 * L * W * n * (2 * n) ** 2})]
     del ops, sy_b, sy_a, x_b, x_a
     k2 = ctx.xntt._mul_s
     a_rows = ctX.a.reshape(len(p.moduli), -1, 2 * n)
+    m = 2 * n
     rows.append(check_kernel(
         "ntt_mul_ntt (K2, gl2 ring 2n = 128)", "ntt_mul_ntt",
         "matrix_fhe_tpu_torch/csrc/ntt_mul_ntt.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1851",
-        lambda: k2.kernel(a_rows, sk.s_mont), lambda: k2.plain(a_rows, sk.s_mont)))
+        lambda: k2.kernel(a_rows, sk.s_mont), lambda: k2.plain(a_rows, sk.s_mont),
+        [k2.fwd, k2.inv, a_rows, sk.s_mont],
+        {"products": a_rows.shape[0] * a_rows.shape[1] * (2 * m * m + m)}))
     del a_rows
     # K1 over the 14-limb QP basis (55-bit P prime included) as relinearize
     # and keygen run it: the W-CRT of a [W, 2n, 2n] digit, and one 2n-point
     # pass of the 2D X-NTT
-    m = 2 * n
     d_w = random_residues(rc.qp_moduli, (W, m * m), gen)
+    fwd_w, fwd_x = rc.wt_qp._fwd, rc.xntt_qp._fwd
     rows.append(check_kernel(
         f"stage (K1, QP W-CRT forward, {len(rc.qp_moduli)} limbs)", "stage",
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
-        lambda: rc.wt_qp._fwd.kernel(d_w), lambda: rc.wt_qp._fwd.plain(d_w)))
+        lambda: fwd_w.kernel(d_w), lambda: fwd_w.plain(d_w),
+        [fwd_w.table, d_w], {"products": stage_products(fwd_w, d_w)}))
     d_x = d_w.reshape(len(rc.qp_moduli), W * m, m)
     rows.append(check_kernel(
         f"stage (K1, QP X-NTT, {m} points)", "stage",
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
-        lambda: rc.xntt_qp._fwd.kernel(d_x), lambda: rc.xntt_qp._fwd.plain(d_x)))
+        lambda: fwd_x.kernel(d_x), lambda: fwd_x.plain(d_x),
+        [fwd_x.table, d_x], {"products": stage_products(fwd_x, d_x)}))
     del d_w, d_x
     # K4 on the encode's inverse tables (Encoder.idft2_exact and
     # WTransform.dft_inverse_pair) at [W, n, n]
@@ -439,7 +552,8 @@ def gl2_path():
             "matrix_fhe_tpu_torch/csrc/fp_cmatmul.cu",
             "matrix_fhe_tpu/ops/fpmatmul.py:129",
             lambda fp=fp, wr=wr, wi=wi: fp_cmatmul_kernel(fp.tr, fp.ti, wr, wi),
-            lambda fp=fp, wr=wr, wi=wi: fp_cmatmul_plain(fp.tr, fp.ti, wr, wi)))
+            lambda fp=fp, wr=wr, wi=wi: fp_cmatmul_plain(fp.tr, fp.ti, wr, wi),
+            [fp.tr, fp.ti, wr, wi], {"products": 4 * k * k * cols}))
     for row in rows:
         row["launches"] = launches.get(row.pop("key"), 0)
 
@@ -448,7 +562,7 @@ def gl2_path():
     from matrix_fhe_tpu_torch.models.he2 import Ciphertext2, SecretKey2
     from matrix_fhe_tpu_torch.models.he_matmul2 import GemmRelinKey
     pt = get_params("tiny")
-    cpu = Gl2Context(pt)
+    cpu = Gl2Context(pt, device="cpu")
     gr_cpu = Gl2GemmRelin(HEMatmul2(cpu))
     gr_gpu = Gl2GemmRelin(HEMatmul2(Gl2Context(pt, device="cuda")))
     g = torch.Generator().manual_seed(5)
@@ -482,6 +596,334 @@ def gl2_path():
     return rows, summary
 
 
+def _move_chain_keys(src, dst) -> None:
+    """Install the keys a LeveledChain made into another chain over the
+    same parameters on another device (the tiny card-vs-CPU check)."""
+    from matrix_fhe_tpu_torch.models.keyswitch import (FullGaloisKeys,
+                                                       GaloisKeys, RelinKey)
+    dev = dst.device
+
+    def move(key):
+        return RelinKey(*(tuple(t.to(dev) for t in part) for part in key))
+
+    for level, rlk in src._rlk.items():
+        dst._rlk[level] = move(rlk)
+    for k, gk in src._gk.items():
+        if k[0] == "full":
+            dst._gk[k] = FullGaloisKeys.from_keys(
+                dst.rc(k[1]), {j: move(v) for j, v in gk._gk._keys.items()})
+        else:
+            dst._gk[k] = GaloisKeys.from_keys(
+                dst.rc(k[0]), {j: v.cpu().numpy() for j, v in gk._perms.items()},
+                {j: move(v) for j, v in gk._keys.items()})
+
+
+def leveled_path():
+    """Key switching at ref: examples/relinearize.py and examples/leveled.py
+    on the port's LeveledChain (the preset's P basis, dnum = 4), a fresh
+    complex pair, a tiny leveled circuit on the card against the CPU, and
+    the ks_phases table; then K10a's twiddle form against its plain
+    version at the QP X-NTT shape and at a batched_left shape (outside the
+    counted run).  Returns (rows, summary, launches)."""
+    from matrix_fhe_tpu_torch import LeveledChain
+    from matrix_fhe_tpu_torch.config import get_params
+    from matrix_fhe_tpu_torch.models.keyswitch import w_automorphism_perm
+    from matrix_fhe_tpu_torch.ops import _backend as be
+    from matrix_fhe_tpu_torch.ops import modmath as mm
+    from matrix_fhe_tpu_torch.scripts import ks_phases
+    from matrix_fhe_tpu_torch.utils.debug import composed_magnitude
+
+    p = get_params("ref")
+    W, n, L = p.phi, p.n, len(p.moduli)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    be.reset_launches()
+    steps = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    chain = step("chain_setup", lambda: LeveledChain(p, seed=5, device="cuda"))
+    ctx, rc = chain.ctx(0), chain.rc(0)
+    log(f"[ks] ref chain: P of {[q.bit_length() for q in rc.p_moduli]} bits, "
+        f"dnum {rc.dnum}, groups {rc.groups}")
+
+    # -- examples/relinearize.py: keygen, two encrypts, multiply, noise ----
+    rlk = step("relin_keygen", lambda: chain.rlk(0))
+    rng = np.random.default_rng(9)
+    m1, m2 = (torch.from_numpy(np.stack(
+        [rng.integers(0, 1 << 30, size=(W, n, n)) for _ in p.moduli])).cuda()
+        for _ in range(2))
+    sk = chain.sk(0)
+    ct1, ct2 = step("encrypt_two", lambda: (ctx.encrypt(m1, sk),
+                                            ctx.encrypt(m2, sk)))
+    ct = step("multiply_relinearize_first",
+              lambda: rc.multiply_relinearize(ct1, ct2, rlk))
+    mr_ms = statistics.median(
+        event_ms(lambda: rc.multiply_relinearize(ct1, ct2, rlk))
+        for _ in range(3))
+    def ring_mul(cx, a, b):
+        return cx.xntt.inverse(cx.xntt.forward_mul(
+            b, cx.xntt.forward_mul(a, cx._r2_tw)))
+
+    diff = mm.sub_mod(ctx.decrypt_to_eval(ct, sk),
+                      ring_mul(ctx, ctx.decrypt_to_eval(ct1, sk),
+                               ctx.decrypt_to_eval(ct2, sk)), ctx._q4)
+    dw0 = ctx.wt.inverse(diff)[0]
+    q0 = int(p.moduli[0])
+    relin_noise = int(torch.where(dw0 > q0 // 2, dw0 - q0, dw0).abs().max())
+    log(f"[ks] relinearized multiply at ref: first call "
+        f"{steps['multiply_relinearize_first']:.1f} ms, median of 3 "
+        f"{mr_ms:.3f} ms; |relinearization noise| max {relin_noise} "
+        f"(limit 2^25 = {1 << 25}; Delta = 2^35)")
+    if not relin_noise < 1 << 25 or ct.b.shape != ct1.b.shape:
+        raise AssertionError(f"relinearization noise {relin_noise} >= 2^25")
+    del ct, ct1, ct2, m1, m2, diff, dw0
+
+    # -- examples/leveled.py: the depth-2 circuit and rotate(2, full) ------
+    rng = np.random.default_rng(3)
+
+    def msg():
+        c = torch.from_numpy(rng.integers(0, 1 << 16, size=(W, n, n))).cuda()
+        return ctx.wt.forward(torch.stack([c % int(q) for q in p.moduli]))
+
+    x, y = chain.encrypt(msg()), chain.encrypt(msg())
+    j = next(c for c in range(2, p.p) if np.gcd(c, p.p) == 1)
+    z = step("multiply_l0", lambda: chain.multiply(x, y))
+    zr = step("rescale", lambda: chain.rescale(z))
+    step("keygen_l1", lambda: (chain.rlk(1), chain.full_galois(1)))
+    w = step("multiply_l1", lambda: chain.multiply(zr, chain.mod_switch(x, 1)))
+    wr = step("rotate_full", lambda: chain.rotate(w, j, full=True))
+    got = step("decrypt", lambda: chain.decrypt_to_eval(wr))
+    launches = dict(be.LAUNCHES)
+    # steady state of each step (the first calls above build the reduced
+    # chain's tables and the level-1 contexts)
+    x1 = chain.mod_switch(x, 1)
+    steady = {name: statistics.median(event_ms(fn) for _ in range(3))
+              for name, fn in (("multiply_l0", lambda: chain.multiply(x, y)),
+                               ("rescale", lambda: chain.rescale(z)),
+                               ("multiply_l1", lambda: chain.multiply(zr, x1)),
+                               ("rotate_full", lambda: chain.rotate(
+                                   w, j, full=True)),
+                               ("decrypt", lambda: chain.decrypt_to_eval(wr)))}
+    log("[leveled] steady step ms (median of 3 after the first call, CUDA "
+        "events): " + ", ".join(f"{k} {v:.3f}" for k, v in steady.items()))
+    c0, c1 = chain.ctx(0), chain.ctx(1)
+    px = c0.decrypt_to_eval(x.ct, chain.sk(0))
+    pz = c1.decrypt_to_eval(zr.ct, chain.sk(1))
+    perm = torch.from_numpy(w_automorphism_perm(chain.params_at(1), j)).cuda()
+    want = ring_mul(c1, pz, px[:-1])[:, perm]
+    oracle = composed_magnitude(c1, mm.sub_mod(got, want, c1._q4))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[leveled] depth-2 circuit at ref (j = {j}): level {wr.level}, "
+        f"scale 2^{np.log2(wr.scale):.1f}; |ct - oracle| composed max "
+        f"{oracle} (limit 2^40); step ms "
+        + ", ".join(f"{k} {v:.1f}" for k, v in steps.items())
+        + f"; max_memory_allocated {peak} B, {peak - held} B above what was "
+        f"held before the path; launches {launches}")
+    if not (oracle < 1 << 40 and wr.level == 1
+            and got.shape == (L - 1, W, n, n)):
+        raise AssertionError(f"leveled circuit oracle {oracle} >= 2^40")
+    del x, y, z, zr, w, wr, got, px, pz, want, x1
+
+    # -- a fresh complex pair at ref ------------------------------------------
+    r5 = np.random.default_rng(5)
+    re = torch.from_numpy(r5.uniform(-2, 2, (W, n, n))).cuda()
+    im = torch.from_numpy(r5.uniform(-2, 2, (W, n, n))).cuda()
+    pr, pi = ctx.batched_encoder.encode_to_wntt_eval(re, im)
+    dr, di = chain.decrypt_decode_complex(chain.encrypt_complex(pr, pi))
+    pair_err = float(torch.hypot(dr - re, di - im).max())
+    log(f"[leveled] fresh complex pair at ref: max err {pair_err:.3e} "
+        f"(limit 1e-4)")
+    if not (np.isfinite(pair_err) and pair_err < TOL):
+        raise AssertionError(f"fresh complex pair err {pair_err} >= {TOL}")
+    del chain, ctx, rc, rlk, re, im, pr, pi, dr, di
+    torch.cuda.empty_cache()
+
+    # -- ks_phases at ref -----------------------------------------------------
+    ks = ks_phases.run("ref", 3, "preset")
+    log("[ks_phases] " + json.dumps(ks))
+    torch.cuda.empty_cache()
+
+    # -- a tiny leveled circuit: card == CPU ------------------------------------
+    pt = get_params("tiny")
+    outs = []
+    cpu_chain = LeveledChain(pt, seed=7, device="cpu")
+    for chain_t in (cpu_chain, LeveledChain(pt, seed=7, device="cuda")):
+        if chain_t is not cpu_chain:
+            _move_chain_keys(cpu_chain, chain_t)
+        c = np.random.default_rng(11).integers(0, 1 << 16, (pt.phi, pt.n, pt.n))
+        mt = chain_t.ctx(0).wt.forward(torch.stack(
+            [torch.from_numpy(c % int(q)) for q in pt.moduli]).to(
+                chain_t.device))
+        a = chain_t.encrypt(mt)
+        b = chain_t.rescale(chain_t.multiply(a, a))
+        b = chain_t.rotate(chain_t.multiply(b, chain_t.mod_switch(a, 1)), 2,
+                           full=True)
+        outs.append((b.ct.b.cpu(), b.ct.a.cpu(),
+                     chain_t.decrypt_to_eval(b).cpu()))
+    if not all(torch.equal(g, c) for g, c in zip(*outs)):
+        raise AssertionError("tiny leveled circuit on the card differs from "
+                             "the CPU path")
+    log("[check] tiny leveled circuit (multiply, rescale, rotate, decrypt): "
+        "card == CPU plain path, bit for bit")
+
+    # -- K10a's twiddle form against its plain version ------------------------
+    from matrix_fhe_tpu_torch.ops.cuda_ntt import Stage
+    from matrix_fhe_tpu_torch.ops.ntt import XNTT
+    from matrix_fhe_tpu_torch.tables import build_tables
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    qp = p.moduli + p.p_moduli
+    ext = dataclasses.replace(p, name="ref-qp", moduli=qp, p_moduli=())
+    fwd = XNTT(ext, tables=build_tables(ext), device="cuda")._fwd
+    d = random_residues(qp, (W * n, n), gen)
+    tw = random_residues(qp, (W * n, n), gen)
+    rows = [check_kernel(
+        f"stage_tw (K10a, QP X-NTT x twiddle, {len(qp)} limbs)", "stage_tw",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:460",
+        lambda: fwd.kernel(d, tw), lambda: fwd.plain(d, tw), [fwd.table, d, tw],
+        {"products": stage_products(fwd, d) + d.numel()})]
+    del d, tw
+    # the four-step stage shape: 256 x 256 tables, a batch of 16 per limb
+    tbl = random_residues(p.moduli, (256, 256), gen)
+    bl = Stage(tbl.cpu().numpy().view(np.uint64), p.moduli, "batched_left",
+               "cuda")
+    d = random_residues(p.moduli, (16, 256, 256), gen)
+    tw = random_residues(p.moduli, (256, 256), gen)
+    rows.append(check_kernel(
+        f"stage_tw (K10a, batched_left x twiddle, [{L}, 16, 256, 256])",
+        "stage_tw", "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:460",
+        lambda: bl.kernel(d, tw), lambda: bl.plain(d, tw), [bl.table, d, tw],
+        {"products": stage_products(bl, d) + d.numel()}))
+    del d, tw, fwd, bl
+    torch.cuda.empty_cache()
+
+    summary = {"ref_relin_noise": relin_noise,
+               "ref_multiply_relinearize_ms": mr_ms,
+               "ref_leveled_oracle": oracle, "ref_pair_err": pair_err,
+               "ref_leveled_max_memory_allocated": peak,
+               "ref_leveled_memory_above_held": peak - held,
+               "ks_phases_ref": ks}
+    summary.update({f"ref_leveled_{k}_ms": v for k, v in steps.items()})
+    summary.update({f"ref_leveled_{k}_steady_ms": v for k, v in steady.items()})
+    return rows, summary, launches
+
+
+def probe_path():
+    """The probe entry points at their default shapes, counted, then K11
+    and K12 against their plain versions on reduced grids, and the rows of
+    both kernels.  Returns (rows, summary, addmul steps per second)."""
+    from matrix_fhe_tpu_torch.ops import _backend as be
+    from matrix_fhe_tpu_torch.ops import probes
+    from matrix_fhe_tpu_torch.scripts import micro_coissue, micro_vpu
+
+    shape = (16, 128, 256, 256)
+    be.reset_launches()
+    vpu = micro_vpu.run(shape, 30)
+    co = micro_coissue.run(8, 64, 30)
+    torch.cuda.synchronize()
+    launches = dict(be.LAUNCHES)
+    log(f"[probe] launches {launches}")
+
+    # reduced grids, every variant and mode, bit for bit
+    xs = micro_vpu.random_u32((2, 8, 256, 256), 1)
+    err_vpu = max(max_abs_diff(probes.u32_chain(xs, kind, k),
+                               probes.u32_chain_plain(xs, kind, k))
+                  for kind, k in micro_vpu.VARIANTS)
+    small = micro_coissue.make_inputs(4, seed=1)
+    err_co = max(max_abs_diff(probes.coissue(*small, mode, 2),
+                              probes.coissue_plain(*small, mode, 2))
+                 for mode in micro_coissue.MODES)
+    log(f"[probe] reduced grids: K11 max_abs_err {err_vpu} over "
+        f"{len(micro_vpu.VARIANTS)} variants, K12 max_abs_err {err_co} over "
+        f"{len(micro_coissue.MODES)} modes")
+    if err_vpu or err_co:
+        raise AssertionError("a probe kernel disagrees with its plain version")
+    del xs, small
+
+    rows = []
+    x = micro_vpu.random_u32(shape, 0)
+    el = x.numel()
+    for kind, k in (("copy", 0), ("addmul", 512)):
+        ms = next(r["ms"] for r in vpu if (r["kind"], r["k"]) == (kind, k))
+        plain_ms = cuda_ms(lambda: probes.u32_chain_plain(x, kind, k), 1)
+        lib = None
+        if kind == "copy":
+            dst = torch.empty_like(x)
+            lib = cuda_ms(lambda: dst.copy_(x), 30)
+        ops = micro_vpu.OPS_PER_STEP[kind] * k * el
+        rows.append({"name": f"micro_vpu (K11, {kind} k={k}, {list(shape)})",
+                     "key": "micro_vpu", "route": "cuda",
+                     "source": "matrix_fhe_tpu_torch/csrc/micro_vpu.cu",
+                     "replaces": "scripts/micro_vpu.py:28",
+                     "max_abs_err": err_vpu, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib, "bytes": 2 * 4 * el,
+                     "work": {"int32": ops}})
+        log(f"[kernel] {rows[-1]['name']}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms" + ("" if lib is None else
+                                   f", Tensor.copy_ {lib:.3f} ms"))
+    del x
+    addmul = next(r for r in vpu if (r["kind"], r["k"]) == ("addmul", 512))
+    steps_per_s = el * 512 / (addmul["ms"] / 1e3)
+
+    d8, t8, a, b = micro_coissue.make_inputs(64)
+    G, P, N, K = d8.shape
+    reps = 8
+    # the library yardstick of the dots: one torch._int_mm over both planes
+    # (sum_p d8[g, p] @ t8[0, p]), reps / P times
+    d8c = d8.permute(0, 2, 1, 3).reshape(G * N, P * K)
+    t8c = t8[0].reshape(P * K, N)
+    for mode in ("mxu", "both"):
+        ms = co["us_per_cell"][mode] * G / 1e3
+        plain_ms = cuda_ms(lambda: probes.coissue_plain(d8, t8, a, b, mode,
+                                                        reps), 1)
+        lib = cuda_ms(lambda: torch._int_mm(d8c, t8c), 30) * (reps // P) \
+            if mode == "mxu" else None
+        work = {"int8": 2 * G * N * K * N * reps}
+        if mode == "both":      # ~12 u32 operations a round and element
+            work["int32"] = 12 * G * N * N * reps
+        rows.append({"name": f"micro_coissue (K12, {mode}, grid {G}, reps "
+                             f"{reps})",
+                     "key": "micro_coissue", "route": "cuda",
+                     "source": "matrix_fhe_tpu_torch/csrc/micro_coissue.cu",
+                     "replaces": "scripts/micro_coissue.py:55",
+                     "max_abs_err": err_co, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib,
+                     "bytes": nbytes([d8, t8, a, b]) + 2 * 4 * G * N * N,
+                     "work": work})
+        log(f"[kernel] {rows[-1]['name']}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms" + ("" if lib is None else
+                                   f", torch._int_mm x {reps // P} "
+                                   f"{lib:.3f} ms"))
+    for row in rows:
+        row["launches"] = launches.get(row.pop("key"), 0)
+    summary = {"k11": vpu, "k12": co, "k11_addmul_steps_per_s": steps_per_s}
+    return rows, summary, steps_per_s
+
+
+def finalize_rows(rows, imads: float, imad_rate: float) -> None:
+    """bound_ms (the larger of bytes over the memory rate and each type of
+    operations over its peak) and bound_by, for every row."""
+    peaks = {"int8": INT8_OPS_PER_S, "int32": INT32_OPS_PER_S}
+    for row in rows:
+        t_bytes = row.pop("bytes") / HBM_BYTES_PER_S
+        work = row.pop("work")
+        t_ops = max(v * imads / imad_rate if k == "products" else v / peaks[k]
+                    for k, v in work.items())
+        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row.setdefault("library_ms", None)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available")
@@ -496,9 +938,15 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    t_run = time.perf_counter()
+    walls = {}
     t0 = time.perf_counter()
     be.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    imads = imads_per_product()
+    log(f"[sass] K1 inner loop: {imads:.2f} 32-bit multiply-adds per 64 x 64 "
+        f"-> 128-bit product (cuobjdump -sass)")
+    t_path = time.perf_counter()
 
     p = get_params("ref")
     t0 = time.perf_counter()
@@ -595,29 +1043,61 @@ def main() -> int:
         raise AssertionError("small roundtrip on the card differs from the CPU path")
     log("[check] small roundtrip: card == CPU plain path, bit for bit")
 
+    walls["1_roundtrip"] = time.perf_counter() - t_path
+
     # -- path 2: the bench NTT (K5) ----------------------------------------
     summary = {"ref_roundtrip_ms": rt_ms, "ref_roundtrip_err": err_rt,
-               "ref_step_api_err": err_steps, "max_memory_allocated": peak}
+               "ref_step_api_err": err_steps, "max_memory_allocated": peak,
+               "k1_imads_per_product": imads}
+    t_path = time.perf_counter()
     for bits in (35, 28):
         ntt_rows, ntt_summary = ntt_path(bits, gen)
         rows += ntt_rows
         summary.update(ntt_summary)
         torch.cuda.empty_cache()
+    walls["2_ntt"] = time.perf_counter() - t_path
 
     # -- path 3: the homomorphic matrix product at ref (K6) -----------------
+    t_path = time.perf_counter()
     mm_rows, mm_summary = matmul_path()
     rows += mm_rows
     summary.update(mm_summary)
     torch.cuda.empty_cache()
+    walls["3_matmul"] = time.perf_counter() - t_path
 
     # -- path 4: the gl2 ciphertext GEMM at ref (K7, K2 at 2n = 128) --------
+    t_path = time.perf_counter()
     gl2_rows, gl2_summary = gl2_path()
     rows += gl2_rows
     summary.update(gl2_summary)
+    torch.cuda.empty_cache()          # path 4's 15 GB of switch keys go
+    walls["4_gl2"] = time.perf_counter() - t_path
+
+    # -- path 5: key switching and the leveled chain at ref (K10a) ----------
+    t_path = time.perf_counter()
+    ks_rows, ks_summary, ks_launches = leveled_path()
+    for row in ks_rows:
+        row["launches"] = ks_launches.get(row.pop("key"), 0)
+    rows += ks_rows
+    summary.update(ks_summary)
+    walls["5_keyswitch"] = time.perf_counter() - t_path
+
+    # -- the probes (K11, K12) ---------------------------------------------
+    t_path = time.perf_counter()
+    probe_rows, probe_summary, imad_rate = probe_path()
+    rows += probe_rows
+    summary.update(probe_summary)
+    walls["6_probes"] = time.perf_counter() - t_path
+
     for row in rows:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its path")
-
+    finalize_rows(rows, imads, imad_rate)
+    log(f"[bound] 32-bit multiply-add rate (K11 addmul, one IMAD a step): "
+        f"{imad_rate:.4e} /s; {imads:.2f} of them per 64-bit product")
+    walls["total"] = time.perf_counter() - t_run
+    summary["wall_s"] = walls
+    log("[wall] " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
     log("[summary] " + json.dumps(summary))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -13,12 +13,17 @@ bit by tests/test_torch_*.py.
     matmul, the four-step NTT and the trace GEMM are hand-written CUDA
     kernels (csrc/), each with a plain PyTorch version beside it: a CPU
     tensor takes the plain version, a CUDA tensor the kernel.
-  * A context lives on one device: init_he_backend(name, device=...).
+  * A context lives on one device: init_he_backend(name, device=...),
+    "cuda" unless the caller asks for "cpu" (which runs the plain
+    versions of the kernels).
   * Beside the roundtrip: the homomorphic matrix product C = Y^H X
     (HEMatmul, the trace GEMM), its ciphertext-in / ciphertext-out form
     on the gl2 double ring (Gl2Context, HEMatmul2, Gl2GemmRelin: the 2x2
     GEMM tensor and its relinearization) and the large-N four-step NTT
     (ops/ntt_large.FourStepNTT).
+  * Key switching: relinearized multiplication, rescale and Galois
+    rotations (models/keyswitch.py), and the leveled chain (LeveledChain)
+    that composes them at depth.
 
 The package imports torch, numpy and the standard library, never jax.
 """
@@ -36,6 +41,9 @@ _LAZY = {
     "Gl2Context": ".models.he2",
     "HEMatmul2": ".models.he_matmul2",
     "Gl2GemmRelin": ".models.he_matmul2",
+    "RelinContext": ".models.keyswitch",
+    "LeveledChain": ".models.leveled",
+    "LeveledCt": ".models.leveled",
 }
 
 

@@ -1,10 +1,10 @@
 """JAX package state -> port state.
 
 Turns the uint64 arrays of matrix_fhe_tpu objects (secret keys,
-ciphertexts, homomorphic-GEMM tensors and switch keys of both rings,
-tables) into the port's int64
-tensors on a given device, so that both packages can compute on the same
-key and ciphertexts.  Objects are read through their attributes and
+ciphertexts, homomorphic-GEMM tensors, relinearization and Galois keys,
+the switch keys of both rings, a leveled chain's keys, tables) into the
+port's int64 tensors on a given device, so that both packages can compute
+on the same keys and ciphertexts.  Objects are read through their attributes and
 np.asarray, so this module does not import jax.  Residues are canonical
 (< 2^56), so the uint64 -> int64 reinterpretation keeps every value.
 """
@@ -20,6 +20,8 @@ from .models.he import Ciphertext, SecretKey
 from .models.he2 import Ciphertext2, SecretKey2
 from .models.he_matmul import MatmulTensor
 from .models.he_matmul2 import GemmRelinKey, GemmTensor2
+from .models.keyswitch import (FullGaloisKeys, GaloisKeys, RelinContext,
+                               RelinKey, XGaloisKeys)
 
 
 def residues(x, device="cpu") -> torch.Tensor:
@@ -70,6 +72,49 @@ def gemm_relin_key(ks, device="cpu") -> GemmRelinKey:
     [Lqp, W, 2n, 2n] in the same storage form)."""
     return GemmRelinKey(*(tuple(residues(x, device) for x in part)
                           for part in ks))
+
+
+def relin_key(rlk, device="cpu") -> RelinKey:
+    """matrix_fhe_tpu RelinKey (or any switch key) -> port RelinKey, per
+    digit [Lqp, W, y, x] in the same storage form x * 2^64 mod q."""
+    return RelinKey(b=tuple(residues(x, device) for x in rlk.b),
+                    a=tuple(residues(x, device) for x in rlk.a))
+
+
+def galois_keys(gk, rc: RelinContext) -> GaloisKeys:
+    """matrix_fhe_tpu GaloisKeys -> port GaloisKeys bound to `rc`."""
+    dev = rc.ctx.device
+    return GaloisKeys.from_keys(
+        rc, {int(j): np.asarray(p) for j, p in gk._perms.items()},
+        {int(j): relin_key(k, dev) for j, k in gk._keys.items()})
+
+
+def full_galois_keys(fk, rc: RelinContext) -> FullGaloisKeys:
+    """matrix_fhe_tpu FullGaloisKeys -> port FullGaloisKeys bound to `rc`."""
+    dev = rc.ctx.device
+    return FullGaloisKeys.from_keys(
+        rc, {int(j): relin_key(k, dev) for j, k in fk._gk._keys.items()})
+
+
+def x_galois_keys(xg, rc: RelinContext) -> XGaloisKeys:
+    """matrix_fhe_tpu XGaloisKeys -> port XGaloisKeys bound to `rc`."""
+    dev = rc.ctx.device
+    return XGaloisKeys.from_keys(
+        rc, int(xg.x_dim),
+        {int(k): relin_key(key, dev) for k, key in xg._keys.items()})
+
+
+def leveled_keys(jax_chain, chain) -> None:
+    """Install a matrix_fhe_tpu LeveledChain's relinearization and Galois
+    keys (those it has made so far) into the port's LeveledChain `chain`
+    over the same parameters, level by level."""
+    for level, rlk in jax_chain._rlk.items():
+        chain._rlk[level] = relin_key(rlk, chain.device)
+    for k, gk in jax_chain._gk.items():
+        if k[0] == "full":
+            chain._gk[k] = full_galois_keys(gk, chain.rc(k[1]))
+        else:
+            chain._gk[k] = galois_keys(gk, chain.rc(k[0]))
 
 
 def tables(t, device="cpu") -> dict:

@@ -1,17 +1,27 @@
-// K1: one exact modular matmul stage per RNS limb.
+// K1 and K10a: one exact modular matmul stage per RNS limb, optionally
+// followed by a per-output Montgomery twiddle.
 //
 // Replaces matrix_fhe_tpu/ops/pallas_ntt.py:_sliced_stage_kernel
 // (SlicedStage): C[l] = A[l] @ B[l] mod q_l with canonical int64 output and
 // q_l < 2^56.  The W-CRT forward is A = table [L, W, W], B = data [L, W, M];
 // the X-NTT ("right" side) is A = data [L, R, n], B = table^T (strides).
 //
+// Also replaces pallas_ntt.py:_stage_kernel (PallasStage) with its twiddle:
+// the output is multiplied by tw[l, row mod tw_rows, col] in the JAX storage
+// form tw * 2^64 mod q, one Montgomery product (R = 2^64) in the epilogue, so
+// the result is (sum mod q) * tw mod q.  Side "batched_left" runs the
+// leading batch axis of D [L, B, K, M] in the grid (blockIdx.z = l * B + b)
+// with the table shared across the batch.  The key switch uses the twiddle
+// to fuse an X-NTT with the pointwise product by a key in storage form.
+//
 // Bound on the H100: 64 x 64 -> 128-bit integer multiply-adds (no tensor
 // core takes 64-bit integers), about 12 integer instructions each.  The
 // design keeps the operands in shared memory tiles (64 x 16 per side) so
 // every loaded residue feeds 4 x 4 outputs from registers, accumulates
-// lazily in 128 bits (products < 2^112, K <= 512) and reduces once per
-// output.  All limbs run in one launch (blockIdx.z = limb).  The TPU's int8
-// digit planes, R = 2^28 folds and limb runs have no counterpart here.
+// lazily in 128 bits (products < 2^112, so K <= 2^16 terms cannot overflow,
+// the bound the wrapper enforces) and reduces once per output.  All limbs
+// (and batch entries) run in one launch.  The TPU's int8 digit planes,
+// R = 2^28 folds and limb runs have no counterpart here.
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
@@ -23,15 +33,18 @@ constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, THREADS = 256;
 __global__ void __launch_bounds__(THREADS)
 stage_kernel(const int64_t* __restrict__ A, const int64_t* __restrict__ B,
              int64_t* __restrict__ C, const int64_t* __restrict__ consts,
-             int M, int N, int K, long long sAl, long long sAm, long long sAk,
-             long long sBl, long long sBk, long long sBn) {
+             const int64_t* __restrict__ tw, int M, int N, int K, int batch,
+             int tw_rows, long long sAl, long long sAb, long long sAm,
+             long long sAk, long long sBl, long long sBb, long long sBk,
+             long long sBn) {
   __shared__ uint64_t As[BK][BM];
   __shared__ uint64_t Bs[BK][BN];
-  const int l = blockIdx.z;
+  const int z = blockIdx.z;
+  const int l = z / batch, bi = z % batch;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const uint64_t* a = reinterpret_cast<const uint64_t*>(A) + l * sAl;
-  const uint64_t* b = reinterpret_cast<const uint64_t*>(B) + l * sBl;
+  const uint64_t* a = reinterpret_cast<const uint64_t*>(A) + l * sAl + bi * sAb;
+  const uint64_t* b = reinterpret_cast<const uint64_t*>(B) + l * sBl + bi * sBb;
 
   uint64_t hi[TM][TN], lo[TM][TN];
 #pragma unroll
@@ -67,7 +80,10 @@ stage_kernel(const int64_t* __restrict__ A, const int64_t* __restrict__ B,
   }
 
   const mfhe::LimbConsts c = mfhe::load_consts(consts, l);
-  int64_t* out = C + (long long)l * M * N;
+  int64_t* out = C + (long long)z * M * N;
+  const uint64_t* twl =
+      tw ? reinterpret_cast<const uint64_t*>(tw) + (long long)l * tw_rows * N
+         : nullptr;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     int gm = row0 + ty + 16 * i;
@@ -75,22 +91,26 @@ stage_kernel(const int64_t* __restrict__ A, const int64_t* __restrict__ B,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       int gn = col0 + tx + 16 * j;
-      if (gn < N)
-        out[(long long)gm * N + gn] =
-            static_cast<int64_t>(mfhe::reduce128(hi[i][j], lo[i][j], c));
+      if (gn >= N) continue;
+      uint64_t v = mfhe::reduce128(hi[i][j], lo[i][j], c);
+      if (twl) v = mfhe::mont_mul(v, twl[(long long)(gm % tw_rows) * N + gn], c);
+      out[(long long)gm * N + gn] = static_cast<int64_t>(v);
     }
   }
 }
 
 }  // namespace
 
+// tw may be null (plain K1); otherwise [L, tw_rows, N] in storage form.
 extern "C" int mf_stage(const int64_t* A, const int64_t* B, int64_t* C,
-                        const int64_t* consts, int L, int M, int N, int K,
-                        long long sAl, long long sAm, long long sAk,
-                        long long sBl, long long sBk, long long sBn,
-                        void* stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, L);
+                        const int64_t* consts, const int64_t* tw, int L,
+                        int batch, int M, int N, int K, int tw_rows,
+                        long long sAl, long long sAb, long long sAm,
+                        long long sAk, long long sBl, long long sBb,
+                        long long sBk, long long sBn, void* stream) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, L * batch);
   stage_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, B, C, consts, M, N, K, sAl, sAm, sAk, sBl, sBk, sBn);
+      A, B, C, consts, tw, M, N, K, batch, tw_rows, sAl, sAb, sAm, sAk, sBl,
+      sBb, sBk, sBn);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,7 +30,7 @@ from .encoder import Encoder
 
 class BatchedEncoder:
     def __init__(self, params: GLParams, tables: GLTables | None = None,
-                 wt: WTransform | None = None, device="cpu"):
+                 wt: WTransform | None = None, *, device):
         t = tables or build_tables(params)
         self.params = params
         self.encoder = Encoder(params, t, device=device)

@@ -37,8 +37,8 @@ def _perm_words(words, f):
 class Encoder:
     """sigma-embedding over a batch of n x n complex matrices [W, n, n]."""
 
-    def __init__(self, params: GLParams, tables: GLTables | None = None,
-                 device="cpu"):
+    def __init__(self, params: GLParams, tables: GLTables | None = None, *,
+                 device):
         t = tables or build_tables(params)
         self.params = params
         self._fp_v = ExactComplexMatmul(t.enc_v, device)

@@ -7,7 +7,9 @@ device:
     eval (K1) -> X-NTT (K1) -> storage form s * 2^64 mod q;
   * encrypt_pair (HE.cu:1455-1552): a in W-eval; t = iNTT_X(NTT_X(a) (*) s)
     (K2); b = m - t + e, one shared `a` for the re/im pair;
-  * decrypt: b + a*s (K2);
+  * encrypt (single message) and decrypt: b + a*s (K2);
+  * add_ciphertexts, multiply_ciphertexts_raw, multiply_plain (K1 and its
+    twiddle form, K10a), add_plain;
   * decrypt_and_decode / roundtrip: the words-chained decode (K3, K4).
 
 The reference-parity randomness streams are constants of the parameter
@@ -25,6 +27,7 @@ import torch
 
 from ..config import GLParams, get_params
 from ..ops import modmath as mm
+from ..ops._backend import resolve_device
 from ..ops.ntt import RING_NEGACYCLIC, XNTT
 from ..ops.wcrt import WTransform
 from ..tables import build_tables
@@ -43,21 +46,11 @@ class SecretKey(NamedTuple):
     s_mont: torch.Tensor
 
 
-def resolve_device(device) -> torch.device:
-    """The context's device; a CUDA device must exist (no CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
 class HEContext:
     """All tables and transforms for one parameter set on one device."""
 
     def __init__(self, params: GLParams, ring: str = RING_NEGACYCLIC,
-                 zero_noise: bool = False, device="cpu"):
+                 zero_noise: bool = False, device="cuda"):
         self.params = params
         self.ring = ring
         self.zero_noise = zero_noise
@@ -70,6 +63,11 @@ class HEContext:
                                               device=self.device)
         self.encoder = self.batched_encoder.encoder
         self._q4 = mm.moduli_col(params.moduli, 3, self.device)
+        # 2^128 mod q as a one-row twiddle: forward_mul by it is the X-NTT
+        # in storage form (x 2^64), the JAX to_mont after the transform
+        self._r2_tw = mm.moduli_col(
+            [mm.MontConsts.make(int(q)).r2 for q in params.moduli], 2,
+            self.device).expand(-1, 1, params.n).contiguous()
 
     # -- key generation -------------------------------------------------------
 
@@ -123,6 +121,18 @@ class HEContext:
         return tuple(Ciphertext(b=self._combine(m, t, e), a=a_eval)
                      for m, e in zip((m_re, m_im), noises))
 
+    def encrypt(self, m: torch.Tensor, sk: SecretKey) -> Ciphertext:
+        """Single-message encrypt (HE.cu:1370-1453) on the parity streams,
+        so it is bit-exact with the JAX package: the messages of one
+        circuit share the parity `a`, as they do there."""
+        t = self.xntt.mul_s(self._parity_a_eval, sk.s_mont)
+        e_eval = None if self.zero_noise else self._parity_e_eval
+        return Ciphertext(b=self._combine(m, t, e_eval), a=self._parity_a_eval)
+
+    def decrypt_to_eval(self, ct: Ciphertext, sk: SecretKey) -> torch.Tensor:
+        """b + a*s in W-eval / X-coeff domain (HE.cu:1553-1601)."""
+        return mm.add_mod(ct.b, self.xntt.mul_s(ct.a, sk.s_mont), self._q4)
+
     def decrypt_pair_to_eval(self, ct_re: Ciphertext, ct_im: Ciphertext,
                              sk: SecretKey) -> Tuple[torch.Tensor, torch.Tensor]:
         """b + a*s in W-eval / X-coeff domain for a pair sharing one `a`
@@ -136,6 +146,37 @@ class HEContext:
         """Full decode to complex matrices [W, n, n] (HE.cu:1691-1708)."""
         ev_re, ev_im = self.decrypt_pair_to_eval(ct_re, ct_im, sk)
         return self.batched_encoder.decode_from_wntt_eval(ev_re, ev_im)
+
+    # -- homomorphic ops (HE.cu:631-669, 1710-1740) -----------------------------
+
+    def add_ciphertexts(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        """Pointwise addition (add_ct_kernel, HE.cu:631-644)."""
+        return Ciphertext(b=mm.add_mod(ct1.b, ct2.b, self._q4),
+                          a=mm.add_mod(ct1.a, ct2.a, self._q4))
+
+    def multiply_ciphertexts_raw(self, ct1: Ciphertext, ct2: Ciphertext):
+        """Tensor product (d0, d1, d2) = (b1b2, b1a2+a1b2, a1a2), pointwise
+        on the stored components as the reference's mul_tensor_kernel
+        (HE.cu:647-669); no relinearization."""
+        q = self._q4
+        return (mm.mul_mod(ct1.b, ct2.b, q),
+                mm.add_mod(mm.mul_mod(ct1.b, ct2.a, q),
+                           mm.mul_mod(ct1.a, ct2.b, q), q),
+                mm.mul_mod(ct1.a, ct2.a, q))
+
+    def multiply_plain(self, ct: Ciphertext, m: torch.Tensor) -> Ciphertext:
+        """Exact ring product with a plaintext m in the stored layout
+        (W-eval, X-coeff): no key, no fresh noise, the scales multiply.
+        Each component is one X-NTT fused with the product by NTT(m) in
+        storage form (K10a's twiddle) and one inverse X-NTT."""
+        xn = self.xntt
+        hat_m = xn.forward_mul(m, self._r2_tw)
+        return Ciphertext(b=xn.inverse(xn.forward_mul(ct.b, hat_m)),
+                          a=xn.inverse(xn.forward_mul(ct.a, hat_m)))
+
+    def add_plain(self, ct: Ciphertext, m: torch.Tensor) -> Ciphertext:
+        """ct + plaintext m (stored layout, at the ciphertext's scale)."""
+        return Ciphertext(b=mm.add_mod(ct.b, m, self._q4), a=ct.a)
 
     def roundtrip(self, m_re: torch.Tensor, m_im: torch.Tensor,
                   sk: SecretKey) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -158,7 +199,7 @@ def _cached_context(params_name: str, ring: str, zero_noise: bool,
 
 
 def init_he_backend(params_name: str = "ref", ring: str = RING_NEGACYCLIC,
-                    zero_noise: bool = False, device="cpu") -> HEContext:
+                    zero_noise: bool = False, device="cuda") -> HEContext:
     """Reference-style singleton constructor (init_he_backend, HE.cu:318),
     one context per (preset, ring, zero_noise, device)."""
     return _cached_context(params_name, ring, zero_noise,

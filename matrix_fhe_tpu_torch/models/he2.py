@@ -38,7 +38,7 @@ from ..ops.wcrt import WTransform
 from ..tables import build_tables
 from . import rng as refrng
 from .encoder import Encoder
-from .he import resolve_device
+from ..ops._backend import resolve_device
 
 I64 = torch.int64
 
@@ -58,7 +58,7 @@ class Gl2Context:
     """Transforms and pipelines for gl2-ring HE on one parameter set and
     one device."""
 
-    def __init__(self, params: GLParams, device="cpu"):
+    def __init__(self, params: GLParams, device="cuda"):
         self.params = params
         self.ring = RING_GL2
         self.device = resolve_device(device)

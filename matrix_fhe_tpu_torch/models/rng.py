@@ -38,7 +38,7 @@ def _residues(noise: torch.Tensor, params: GLParams) -> torch.Tensor:
         (params.num_limbs,) + tuple(noise.shape)).contiguous()
 
 
-def uniform_a(params: GLParams, device="cpu") -> torch.Tensor:
+def uniform_a(params: GLParams, device) -> torch.Tensor:
     """Reference-exact uniform polynomial in W-coeff domain, [L, W, n, n]
     (uniform_random_kernel, HE.cu:564-578)."""
     L, W, n = params.num_limbs, params.phi, params.n
@@ -52,7 +52,7 @@ def uniform_a(params: GLParams, device="cpu") -> torch.Tensor:
     return umod64(seed, moduli_col(params.moduli, 3, device))
 
 
-def ternary_secret(params: GLParams, device="cpu") -> torch.Tensor:
+def ternary_secret(params: GLParams, device) -> torch.Tensor:
     """Reference-exact ternary secret in W-coeff domain, [L, W, n]
     (ternary_secret_kernel, HE.cu:690-713): 0 -> 0, 1 -> 1, 2 -> q-1."""
     W, n = params.phi, params.n
@@ -77,7 +77,7 @@ def llround(z: torch.Tensor) -> torch.Tensor:
                        torch.ceil(z - 0.5)).to(I64)
 
 
-def gaussian_noise(params: GLParams, device="cpu") -> torch.Tensor:
+def gaussian_noise(params: GLParams, device) -> torch.Tensor:
     """Discrete Gaussian (sigma, Box-Muller, llround) in W-coeff domain,
     [L, W, n, n] (gaussian_noise_kernel, HE.cu:581-627)."""
     W, n = params.phi, params.n
@@ -98,7 +98,7 @@ def gaussian_noise(params: GLParams, device="cpu") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def fresh_uniform_a(gen: torch.Generator, params: GLParams,
-                    device="cpu", shape=None) -> torch.Tensor:
+                    device, shape=None) -> torch.Tensor:
     """Uniform residues [L, *shape] (default shape (W, n, n)), drawn on the
     generator's device limb by limb in limb order.  Rectangular frames,
     such as the gl2 ring's [W, n, 2n] and its 2D tensor's [W, 2n, 2n],
@@ -111,14 +111,14 @@ def fresh_uniform_a(gen: torch.Generator, params: GLParams,
 
 
 def fresh_ternary_secret(gen: torch.Generator, params: GLParams,
-                         device="cpu") -> torch.Tensor:
+                         device) -> torch.Tensor:
     r = torch.randint(0, 3, (params.phi, params.n), generator=gen,
                       dtype=I64, device=gen.device).to(device)
     return _residues(torch.where(r == 2, -1, r), params)
 
 
 def fresh_gaussian_noise(gen: torch.Generator, params: GLParams,
-                         device="cpu", shape=None) -> torch.Tensor:
+                         device, shape=None) -> torch.Tensor:
     """Rounded Gaussian (sigma) [L, *shape] (default shape (W, n, n)), the
     same integer in every limb (matrix_fhe_tpu/models/rng.py:223-233)."""
     shape = (params.phi, params.n, params.n) if shape is None else tuple(shape)

@@ -1,7 +1,7 @@
 """ctypes binding for the native table generator.
 
-Compiles the JAX package's own source, matrix_fhe_tpu/native/tablegen.cpp
-(read by path, never imported), with g++ into the port's build directory
+Compiles the port's own copy of the table generator, native/tablegen.cpp
+beside this file, with g++ into the port's build directory
 matrix_fhe_tpu_torch/_build/ on first use, and rebuilds when the source is
 newer than the library.  `available()` is False where no compiler is
 found; matrix_fhe_tpu_torch.tables then uses its pure-Python code,
@@ -20,8 +20,7 @@ from typing import Sequence, Tuple
 import numpy as np
 
 _PORT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PORT), "matrix_fhe_tpu", "native",
-                      "tablegen.cpp")
+SOURCE = os.path.join(_PORT, "native", "tablegen.cpp")
 LIBRARY = os.path.join(_PORT, "_build", "libtablegen.so")
 
 _PU64 = ctypes.POINTER(ctypes.c_uint64)

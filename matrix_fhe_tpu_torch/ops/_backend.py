@@ -29,7 +29,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("stage.cu", "ntt_mul_ntt.cu", "inv_compose.cu", "fp_cmatmul.cu",
-           "four_step_ntt.cu", "cgemm.cu", "gemm2x2.cu")
+           "four_step_ntt.cu", "cgemm.cu", "gemm2x2.cu", "micro_vpu.cu",
+           "micro_coissue.cu")
 HEADERS = ("modarith.cuh",)
 LIBRARY = os.path.join(BUILD, "libmfhe_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,14 +44,16 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     # name: argtypes after the C function's own name
-    "mf_stage": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
-                 _P],
+    "mf_stage": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL,
+                 _LL, _LL, _LL, _LL, _LL, _P],
     "mf_ntt_mul_ntt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mf_inv_compose": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mf_fp_cmatmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mf_four_step": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "mf_cgemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mf_gemm2x2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mf_u32_chain": [_P, _P, _LL, _I, _I, _P],
+    "mf_coissue": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mf_ntt_mul_ntt_smem": [_I],
 }
 # host-side queries that return something other than a CUDA error code
@@ -119,6 +122,16 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
+
+
+def resolve_device(device) -> torch.device:
+    """An entry point's device; a CUDA device must exist (no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def on_device(*tensors: torch.Tensor) -> bool:

@@ -1,12 +1,12 @@
-"""Kernels K1-K3: the exact modular-matmul stages of the HE path.
+"""Kernels K1-K3 and K10a: the exact modular-matmul stages of the HE path.
 
-Counterpart of matrix_fhe_tpu/ops/pallas_ntt.py (SlicedStage,
-SlicedNttMulNtt, SlicedInvCompose).  Each class owns its tables as int64
-tensors on one device; calling it on a CUDA tensor launches the kernel in
-``csrc/`` and on a CPU tensor runs the plain PyTorch version, ``plain``,
-which is the same function (the CPU tests and chip_smoke.py hold the two
-equal).  All limbs run in one launch: the TPU's limb runs, int8 digit
-planes and u32 lo/hi planes do not exist here.
+Counterpart of matrix_fhe_tpu/ops/pallas_ntt.py (SlicedStage and
+PallasStage with its twiddle, SlicedNttMulNtt, SlicedInvCompose).  Each
+class owns its tables as int64 tensors on one device; calling it on a CUDA
+tensor launches the kernel in ``csrc/`` and on a CPU tensor runs the plain
+PyTorch version, ``plain``, which is the same function (the CPU tests and
+chip_smoke.py hold the two equal).  All limbs run in one launch: the
+TPU's limb runs, int8 digit planes and u32 lo/hi planes do not exist here.
 """
 
 from __future__ import annotations
@@ -42,55 +42,118 @@ def _bits(moduli: Sequence[int], k: int) -> int:
 
 
 class Stage:
-    """K1: one exact modular matmul stage per limb, canonical output.
+    """K1 and K10a: one exact modular matmul stage per limb, canonical
+    output, optionally times a per-output twiddle.
 
-    side 'left':  out[l, w, m] = sum_r T[l, w, r] * D[l, r, m] mod q_l
-                  (W-CRT; D [L, K, M])
-    side 'right': out[l, r, k] = sum_x D[l, r, x] * T[l, k, x] mod q_l
-                  (X-NTT; D [L, R, K])
+    side 'left':         out[l, w, m] = sum_r T[l, w, r] * D[l, r, m] mod q_l
+                         (W-CRT; D [L, K, M])
+    side 'right':        out[l, r, k] = sum_x D[l, r, x] * T[l, k, x] mod q_l
+                         (X-NTT; D [L, R, K])
+    side 'batched_left': out[l, b, w, m] = sum_r T[l, w, r] * D[l, b, r, m]
+                         mod q_l (D [L, B, K, M]; the four-step stage shape)
+
+    A call may pass `twiddle_mont` in the JAX storage form tw * 2^64 mod q
+    (sides 'right' and 'batched_left', as PallasStage): the output is then
+    multiplied by tw[l, r mod tw_rows, k] ('right', twiddle [L, tw_rows, W])
+    or tw[l, w, m] ('batched_left', twiddle [L, W, M]) mod q, a Montgomery
+    product in the kernel's epilogue (launch key "stage_tw").  With a key or
+    a ciphertext in storage form as the twiddle, this is the X-NTT fused
+    with the pointwise ring product of the key switch.
     """
 
     def __init__(self, tables_u64: np.ndarray, moduli: Sequence[int],
                  side: str, device):
-        if side not in ("left", "right"):
-            raise ValueError(f"side must be 'left' or 'right', not {side!r}")
+        if side not in ("left", "right", "batched_left"):
+            raise ValueError("side must be 'left', 'right' or 'batched_left', "
+                             f"not {side!r}")
         self.side = side
         self.moduli = tuple(int(q) for q in moduli)
         self.bits = _bits(self.moduli, tables_u64.shape[-1])
         self.table = _as_i64(tables_u64, device)
         self.consts = kernel_consts(self.moduli, device)
         self.q = moduli_col(self.moduli, 2, device)
+        self.r_inv = moduli_col(
+            [pow(1 << 64, -1, q) for q in self.moduli], 2, device)
 
-    def __call__(self, data: torch.Tensor) -> torch.Tensor:
-        if be.on_device(data, self.table):
-            return self.kernel(data)
-        return self.plain(data)
+    def __call__(self, data: torch.Tensor,
+                 twiddle_mont: torch.Tensor | None = None) -> torch.Tensor:
+        extra = () if twiddle_mont is None else (twiddle_mont,)
+        if be.on_device(data, self.table, *extra):
+            return self.kernel(data, twiddle_mont)
+        return self.plain(data, twiddle_mont)
 
-    def plain(self, data: torch.Tensor) -> torch.Tensor:
-        return modmatmul(self.table, data, self.q, self.bits, self.side)
-
-    def kernel(self, data: torch.Tensor) -> torch.Tensor:
-        L, W, K = self.table.shape
-        if data.dim() != 3:
-            raise ValueError(f"data must be [L, ., .], got {tuple(data.shape)}")
+    def _check_twiddle(self, tw: torch.Tensor, out_shape) -> int:
+        """The twiddle's row count, after checking it against the output."""
         if self.side == "left":
-            M = data.shape[2]
+            raise ValueError("side 'left' takes no twiddle (as PallasStage)")
+        L, cols = out_shape[0], out_shape[-1]
+        rows = out_shape[1] if self.side == "right" else out_shape[2]
+        if tw.dim() != 3 or tw.shape[0] != L or tw.shape[2] != cols:
+            raise ValueError(f"twiddle {tuple(tw.shape)} does not fit the "
+                             f"output {tuple(out_shape)}")
+        tw_rows = tw.shape[1]
+        if self.side == "batched_left" and tw_rows != rows:
+            raise ValueError(f"batched_left twiddle needs {rows} rows")
+        if rows % tw_rows:
+            raise ValueError(f"twiddle rows {tw_rows} do not divide {rows}")
+        return tw_rows
+
+    def plain(self, data: torch.Tensor,
+              twiddle_mont: torch.Tensor | None = None) -> torch.Tensor:
+        if self.side == "batched_left":
+            out = modmatmul(self.table[:, None], data, self.q[..., None],
+                            self.bits, "left")
+        else:
+            out = modmatmul(self.table, data, self.q, self.bits, self.side)
+        if twiddle_mont is None:
+            return out
+        tw_rows = self._check_twiddle(twiddle_mont, out.shape)
+        tw = mul_mod(twiddle_mont, self.r_inv, self.q)    # tw * 2^64 * 2^-64
+        if self.side == "batched_left":
+            return mul_mod(out, tw[:, None], self.q[..., None])
+        L, R, W = out.shape
+        return mul_mod(out.reshape(L, R // tw_rows, tw_rows, W), tw[:, None],
+                       self.q[..., None]).reshape(out.shape)
+
+    def kernel(self, data: torch.Tensor,
+               twiddle_mont: torch.Tensor | None = None) -> torch.Tensor:
+        L, W, K = self.table.shape
+        batch, sAb, sBb = 1, 0, 0
+        if self.side == "left":
+            M = data.shape[2] if data.dim() == 3 else -1
             be.check(data, "data", I64, (L, K, M))
             out = torch.empty((L, W, M), dtype=I64, device=data.device)
             rows, cols = W, M
             a_strides = (W * K, K, 1)      # A = T[l]  [W, K]
             b_strides = (K * M, M, 1)      # B = D[l]  [K, M]
             a, b = self.table, data
+        elif self.side == "batched_left":
+            batch, M = (data.shape[1], data.shape[3]) if data.dim() == 4 \
+                else (-1, -1)
+            be.check(data, "data", I64, (L, batch, K, M))
+            out = torch.empty((L, batch, W, M), dtype=I64, device=data.device)
+            rows, cols = W, M
+            a_strides = (W * K, K, 1)      # A = T[l], shared by the batch
+            b_strides = (batch * K * M, M, 1)
+            sBb = K * M                    # B = D[l, b]  [K, M]
+            a, b = self.table, data
         else:
-            R = data.shape[1]
+            R = data.shape[1] if data.dim() == 3 else -1
             be.check(data, "data", I64, (L, R, K))
             out = torch.empty((L, R, W), dtype=I64, device=data.device)
             rows, cols = R, W
             a_strides = (R * K, K, 1)      # A = D[l]  [R, K]
             b_strides = (W * K, 1, K)      # B = T[l]^T  [K, W]
             a, b = data, self.table
-        be.launch("stage", "mf_stage", data.device, a, b, out, self.consts,
-                  L, rows, cols, K, *a_strides, *b_strides)
+        if twiddle_mont is None:
+            key, tw, tw_rows = "stage", None, 1
+        else:
+            key, tw = "stage_tw", twiddle_mont
+            tw_rows = self._check_twiddle(tw, out.shape)
+            be.check(tw, "twiddle_mont", I64, tuple(tw.shape))
+        be.launch(key, "mf_stage", data.device, a, b, out, self.consts, tw,
+                  L, batch, rows, cols, K, tw_rows, a_strides[0], sAb,
+                  *a_strides[1:], b_strides[0], sBb, *b_strides[1:])
         return out
 
 

@@ -5,8 +5,10 @@ X transform is one batched [rows, n] @ [n, n]^T modular matmul per limb
 (kernel K1, side "right"), and mul_s is the fused
 iNTT_X(NTT_X(a) (*) s) of encrypt and decrypt (kernel K2).  The "gl2"
 ring is the GL ring's integral double form Z[X]/(X^{2n}+1), a 2n-point
-transform with the same kernels.  The TPU's 128-lane block-diagonal
-packing has no counterpart: it only filled the TPU's vector lanes.
+transform with the same kernels.  forward_mul fuses the forward transform
+with a pointwise product in storage form (kernel K10a's twiddle).  The
+TPU's 128-lane block-diagonal packing has no counterpart: it only filled
+the TPU's vector lanes.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ class XNTT:
     of [L, ..., n] int64 residues, batched over everything else."""
 
     def __init__(self, params: GLParams, ring: str = RING_NEGACYCLIC,
-                 tables: GLTables | None = None, device="cpu"):
+                 tables: GLTables | None = None, *, device):
         t = tables or build_tables(params)
         if ring == RING_NEGACYCLIC:
             fwd, inv = t.x_fwd_nega, t.x_inv_nega
@@ -51,6 +53,17 @@ class XNTT:
 
     def inverse(self, x: torch.Tensor) -> torch.Tensor:
         return self._apply(self._inv, x)
+
+    def forward_mul(self, x: torch.Tensor, tw_mont: torch.Tensor
+                    ) -> torch.Tensor:
+        """NTT_X(x) (*) tw pointwise in one launch (K10a's twiddle): x
+        [L, ..., n] X-coefficients, tw_mont [L, ..., n] in the X-NTT domain
+        and storage form tw * 2^64 mod q, whose rows repeat over x's rows
+        (one row [L, 1, n] broadcasts over all of them)."""
+        L, n = x.shape[0], x.shape[-1]
+        flat = x.reshape(L, -1, n).contiguous()
+        tw = tw_mont.reshape(L, -1, n).contiguous()
+        return self._fwd(flat, twiddle_mont=tw).reshape(x.shape)
 
     def mul_s(self, a: torch.Tensor, s_mont: torch.Tensor) -> torch.Tensor:
         """t = iNTT_X(NTT_X(a) (*) s): a [L, W, ..., n] X-coefficients,

@@ -121,9 +121,9 @@ class FourStepNTT:
     """Batched forward/inverse NTT over [L, B, N] int64 residues on one
     device (tables live there)."""
 
-    def __init__(self, plan: FourStepPlan, device="cpu"):
+    def __init__(self, plan: FourStepPlan, device="cuda"):
         self.plan = plan
-        self.device = torch.device(device)
+        self.device = be.resolve_device(device)
         self.bits = max(int(q).bit_length() for q in plan.moduli)
         if self.bits >= 56:
             raise ValueError("moduli must be < 2^56")

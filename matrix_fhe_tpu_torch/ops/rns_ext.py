@@ -34,7 +34,7 @@ class BasisExtender:
     over dst_moduli ([Ld, ...]), constants on `device`."""
 
     def __init__(self, src_moduli: Sequence[int], dst_moduli: Sequence[int],
-                 device="cpu"):
+                 device):
         self.src = tuple(int(q) for q in src_moduli)
         self.dst = tuple(int(r) for r in dst_moduli)
         q_src = 1

@@ -37,8 +37,8 @@ class WTransform:
     """Forward W-CRT over all RNS limbs, the fused scaled inverse +
     compose, and the fixed-point W-DFT words transforms."""
 
-    def __init__(self, params: GLParams, tables: GLTables | None = None,
-                 device="cpu"):
+    def __init__(self, params: GLParams, tables: GLTables | None = None, *,
+                 device):
         t = tables or build_tables(params)
         self.params = params
         self._fwd = Stage(t.w_fwd, params.moduli, "left", device)

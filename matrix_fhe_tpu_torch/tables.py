@@ -22,7 +22,7 @@ init_wdft_tables, ntt_core.cu:75-198, encoder.cu:329-444):
     (encoder.cu:341-421).
 
 Heavy parts can optionally be served by the native C++ table generator
-(matrix_fhe_tpu/native/tablegen.cpp, bound by native/tablegen.py) — results
+(native/tablegen.cpp, bound by native/tablegen.py) — results
 are identical; Python is the fallback and the oracle.  This module is the
 port's copy of matrix_fhe_tpu/tables.py: numpy only, no jax.
 """

@@ -41,7 +41,7 @@ def encoders():
         mp.undo()
     re, im = _message(p)
     pairs = jbe.encode_pair(jnp.asarray(re), jnp.asarray(im))
-    return jbe, BatchedEncoder(get_params(PRESET)), (re, im), pairs
+    return jbe, BatchedEncoder(get_params(PRESET), device="cpu"), (re, im), pairs
 
 
 def test_encode_matches_words_route(encoders):
@@ -87,7 +87,7 @@ def test_decode_within_1e9_of_jax(encoders):
 
 def test_loopback_within_contract():
     p = get_params(PRESET)
-    tbe = BatchedEncoder(p)
+    tbe = BatchedEncoder(p, device="cpu")
     re, im = _message(p, seed=6, scale=0.9)
     dr, di = tbe.decode_pair(*tbe.encode_pair(torch.from_numpy(re),
                                               torch.from_numpy(im)))
@@ -101,7 +101,7 @@ def test_f64_sandwiches_match_jax():
     from matrix_fhe_tpu_torch.models.encoder import Encoder
 
     p = get_params(PRESET)
-    enc, jenc = Encoder(p), JaxEnc(jax_params(PRESET))
+    enc, jenc = Encoder(p, device="cpu"), JaxEnc(jax_params(PRESET))
     re, im = _message(p, seed=7)
     for mine, ref in ((enc.idft2, jenc.idft2), (enc.dft2, jenc.dft2)):
         got = mine(torch.from_numpy(re), torch.from_numpy(im))
@@ -116,7 +116,7 @@ def test_quantize_words_contract_guard():
     instead of mis-scaling every residue; a compliant scale quantizes."""
     from matrix_fhe_tpu_torch.models.encoder import Encoder
 
-    enc = Encoder(get_params(PRESET))
+    enc = Encoder(get_params(PRESET), device="cpu")
     words = (torch.ones(2, 8, dtype=torch.int64),) * 3 + (
         torch.zeros(2, 8, dtype=torch.int64),)
     with pytest.raises(ValueError, match="encode contract"):

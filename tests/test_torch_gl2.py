@@ -115,7 +115,7 @@ def test_xntt_gl2_matches_jax(basis):
     x = _residues(tp.moduli, (3, tp.n, m), 1)
     s = _residues(tp.moduli, (3, m), 2)
     jx = JaxXNTT(jp, ring="gl2", use_pallas=False)
-    tx = XNTT(tp, ring="gl2")
+    tx = XNTT(tp, ring="gl2", device="cpu")
     _eq(tx.forward(_i64(x)), jx.forward(jnp.asarray(x)))
     _eq(tx.inverse(_i64(x)), jx.inverse(jnp.asarray(x)))
     _eq(tx.mul_s(_i64(x), _i64(s)), jx.mul_s(jnp.asarray(x), jnp.asarray(s)))
@@ -143,7 +143,7 @@ def gl2(request):
         jctX = jctx.encrypt(jmX, jsk, jax.random.key(2))
         jctY = jctx.encrypt(jmY, jsk, jax.random.key(4))
         jtt = jhm.matmul_tensor(jctX, jctY)
-        ctx = Gl2Context(get_params(preset))
+        ctx = Gl2Context(get_params(preset), device="cpu")
         yield types.SimpleNamespace(
             preset=preset, jctx=jctx, jhm=jhm, X=X, Y=Y, jmX=jmX, jsk=jsk,
             jctX=jctX, jctY=jctY, jtt=jtt, ctx=ctx, hm=HEMatmul2(ctx),

@@ -73,7 +73,7 @@ def relin_ctx(request):
     """Both packages' RelinContext on the tiny and the small gl2 context."""
     jctx = JaxGl2Context(jax_params(request.param), use_pallas=False)
     return jks.RelinContext(jctx), tks.RelinContext(
-        Gl2Context(get_params(request.param)))
+        Gl2Context(get_params(request.param), device="cpu"))
 
 
 def test_relin_context_constants_match_jax(relin_ctx):
@@ -128,7 +128,7 @@ def test_basis_extender_ref_moduli_match_jax(group):
         src, dst = [p.moduli[l] for l in groups[group]], p.moduli + p.p_moduli
     x = _residues(src, (1 << 16,), 14)
     jrp, jk = JaxExtender(src, dst).scaled_residues(jnp.asarray(x))
-    ext = BasisExtender(src, dst)
+    ext = BasisExtender(src, dst, "cpu")
     rp, k = ext.scaled_residues(_i64(x))
     np.testing.assert_array_equal(k.numpy(), np.asarray(jk).astype(np.int64))
     _eq(ext.extend_from(rp, k), JaxExtender(src, dst).extend_from(jrp, jk))
@@ -171,7 +171,7 @@ def test_relinearize_matches_jax(preset, chunk_limbs):
     and tensor == JAX relinearize_fn, at 1-limb chunks (tiny) and one full
     chunk (tiny, small); its arguments are left as they were."""
     jgr, jkeys, jtt, want = _jax_relin(preset)
-    gr = Gl2GemmRelin(HEMatmul2(Gl2Context(get_params(preset))),
+    gr = Gl2GemmRelin(HEMatmul2(Gl2Context(get_params(preset), device="cpu")),
                       chunk_limbs=chunk_limbs)
     if chunk_limbs == 1:
         assert len(gr._qp_chunks()) == len(gr.rc.qp_moduli)
@@ -193,7 +193,7 @@ def port_gemm():
     """Port-only tiny gl2 GEMM: keys from a torch.Generator, X and Y
     encrypted, switch keys at one full chunk and at 1-limb chunks."""
     p = get_params("tiny")
-    ctx = Gl2Context(p)
+    ctx = Gl2Context(p, device="cpu")
     hm = HEMatmul2(ctx)
     gen = torch.Generator().manual_seed(1)
     sk = ctx.generate_secret_key(gen)
@@ -270,4 +270,5 @@ def test_port_keyed_gemm_decodes_to_yhx(port_gemm):
 def test_relin_context_refuses_the_folded_ring():
     from matrix_fhe_tpu_torch.models.he import HEContext
     with pytest.raises(ValueError, match="gl2"):
-        tks.RelinContext(HEContext(get_params("tiny"), ring="gl"))
+        tks.RelinContext(HEContext(get_params("tiny"), ring="gl",
+                                   device="cpu"))

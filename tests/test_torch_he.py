@@ -5,7 +5,10 @@ with matrix_fhe_tpu_torch.convert must decrypt in the port, and the whole
 ref-path roundtrip must reproduce the JAX _roundtrip_pair_fn.
 """
 
+import ast
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -45,7 +48,7 @@ def test_keygen_and_encrypt_pair_match_jax(ring):
     """s_mont and both ciphertexts (b, a) bit for bit."""
     p = get_params("tiny")
     jctx = JaxContext(jax_params("tiny"), ring=ring)
-    ctx = HEContext(p, ring=ring)
+    ctx = HEContext(p, ring=ring, device="cpu")
     jsk, sk = jctx.generate_secret_key(), ctx.generate_secret_key()
     assert torch.equal(sk.s_mont, convert.secret_key(jsk).s_mont)
     m_re, m_im = _residues(p, 1), _residues(p, 2)
@@ -59,7 +62,7 @@ def test_keygen_and_encrypt_pair_match_jax(ring):
 @pytest.mark.parametrize("ring", [RING_NEGACYCLIC, RING_GL])
 def test_zero_noise_encrypt_decrypt_identity(ring):
     p = get_params("tiny")
-    ctx = HEContext(p, ring=ring, zero_noise=True)
+    ctx = HEContext(p, ring=ring, zero_noise=True, device="cpu")
     sk = ctx.generate_secret_key()
     m_re, m_im = _t(_residues(p, 3)), _t(_residues(p, 4))
     ev_re, ev_im = ctx.decrypt_pair_to_eval(*ctx.encrypt_pair(m_re, m_im, sk),
@@ -79,7 +82,7 @@ def test_decrypt_jax_ciphertext():
     jct_re, jct_im = jctx.encrypt_pair(pr, pi, jsk)
     want = jctx.decrypt_pair_to_eval(jct_re, jct_im, jsk)
 
-    ctx = HEContext(get_params("tiny"))
+    ctx = HEContext(get_params("tiny"), device="cpu")
     sk = convert.secret_key(jsk)
     ct_re, ct_im = convert.ciphertext(jct_re), convert.ciphertext(jct_im)
     got = ctx.decrypt_pair_to_eval(ct_re, ct_im, sk)
@@ -106,7 +109,7 @@ def test_roundtrip_matches_jax_roundtrip_pair_fn(monkeypatch):
     re, im = _message(jp, 3)
     want = jctx._roundtrip_pair_fn(jnp.asarray(re), jnp.asarray(im), jsk)
 
-    ctx = HEContext(get_params("small"))
+    ctx = HEContext(get_params("small"), device="cpu")
     got = ctx.roundtrip(torch.from_numpy(re), torch.from_numpy(im),
                         ctx.generate_secret_key())
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
@@ -116,8 +119,8 @@ def test_roundtrip_matches_jax_roundtrip_pair_fn(monkeypatch):
 
 def test_step_api_equals_roundtrip():
     p = get_params("tiny")
-    ctx = init_he_backend("tiny")
-    assert init_he_backend("tiny") is ctx
+    ctx = init_he_backend("tiny", device="cpu")
+    assert init_he_backend("tiny", device="cpu") is ctx
     sk = ctx.generate_secret_key()
     re, im = (torch.from_numpy(x) for x in _message(p, 6))
     pr, pi = ctx.batched_encoder.encode_to_wntt_eval(re, im)
@@ -128,7 +131,7 @@ def test_step_api_equals_roundtrip():
 
 def test_fresh_randomness_pipeline():
     p = get_params("tiny")
-    ctx = HEContext(p)
+    ctx = HEContext(p, device="cpu")
     gen = torch.Generator().manual_seed(42)
     sk = ctx.generate_secret_key(gen)
     assert not torch.equal(sk.s_mont, ctx.generate_secret_key().s_mont)
@@ -141,23 +144,80 @@ def test_fresh_randomness_pipeline():
 
 
 def test_package_never_imports_jax():
-    code = ("import sys, matrix_fhe_tpu_torch as m; "
-            "from matrix_fhe_tpu_torch import convert; "
+    """Every module of the port imports no JAX and nothing of the JAX
+    package, and a run of the package opens and compiles no file under
+    matrix_fhe_tpu/ (an audit hook watches every open and subprocess)."""
+    code = ("import os, sys\n"
+            "bad_files = []\n"
+            "jax_dir = os.path.join(os.getcwd(), 'matrix_fhe_tpu') + os.sep\n"
+            "def hook(event, args):\n"
+            "    if event in ('open', 'subprocess.Popen') and jax_dir in str(args):\n"
+            "        bad_files.append((event, str(args)[:200]))\n"
+            "sys.addaudithook(hook)\n"
+            "import matrix_fhe_tpu_torch as m\n"
+            "from matrix_fhe_tpu_torch import convert\n"
+            "from matrix_fhe_tpu_torch.native import tablegen\n"
             "from matrix_fhe_tpu_torch.ops import ntt_large, crt, gint, cgemm, "
-            "rns_ext; "
+            "rns_ext, probes\n"
             "from matrix_fhe_tpu_torch.models import trace, he_matmul, he2, "
-            "he_matmul2, keyswitch; "
-            "ctx = m.init_he_backend('tiny'); ctx.generate_secret_key(); "
-            "m.HEMatmul(m.init_he_backend('tiny', ring='gl')); "
-            "m.Gl2GemmRelin(m.HEMatmul2(m.Gl2Context(m.get_params('tiny')))); "
+            "he_matmul2, keyswitch, leveled\n"
+            "from matrix_fhe_tpu_torch.utils import debug\n"
+            "from matrix_fhe_tpu_torch.scripts import micro_vpu, "
+            "micro_coissue, ks_phases\n"
+            "tablegen.available()\n"
+            "ctx = m.init_he_backend('tiny', device='cpu')\n"
+            "ctx.generate_secret_key()\n"
+            "m.HEMatmul(m.init_he_backend('tiny', ring='gl', device='cpu'))\n"
+            "m.Gl2GemmRelin(m.HEMatmul2(m.Gl2Context(m.get_params('tiny'), "
+            "device='cpu')))\n"
+            "chain = m.LeveledChain(m.get_params('tiny'), device='cpu')\n"
+            "chain.rc(1)\n"
             "bad = [k for k in sys.modules "
             "if k == 'jax' or k.startswith(('jax.', 'matrix_fhe_tpu.')) "
-            "or k == 'matrix_fhe_tpu']; "
-            "assert not bad, bad")
+            "or k == 'matrix_fhe_tpu']\n"
+            "assert not bad, bad\n"
+            "assert not bad_files, bad_files\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _program_strings(path):
+    """String constants of a Python file outside its docstrings."""
+    tree = ast.parse(open(path).read())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)):
+            first = node.body[0] if node.body else None
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_port_names_no_file_of_the_jax_package():
+    """No port file and not chip_smoke.py names a path under
+    matrix_fhe_tpu/ that it could open or compile: its program strings
+    hold no such path (a "file.py:line" citation of the reference is fine)
+    and no CUDA or C++ source includes one."""
+    port = os.path.join(ROOT, "matrix_fhe_tpu_torch")
+    cite = re.compile(r"matrix_fhe_tpu/[\w/]+\.py:\d+(-\d+)?")
+    py = glob.glob(os.path.join(port, "**", "*.py"), recursive=True)
+    assert len(py) > 20
+    for path in py + [os.path.join(ROOT, "chip_smoke.py")]:
+        for s in _program_strings(path):
+            assert s != "matrix_fhe_tpu", path
+            for m in re.finditer(r"matrix_fhe_tpu/\S*", s):
+                assert cite.fullmatch(m.group(0).rstrip(",;)")), (path, s)
+    for ext in ("cu", "cuh", "cpp"):
+        for path in glob.glob(os.path.join(port, "**", "*." + ext),
+                              recursive=True):
+            for line in open(path):
+                assert not (line.startswith("#include")
+                            and "matrix_fhe_tpu/" in line), (path, line)
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
@@ -180,3 +240,27 @@ def test_cuda_backend_raises_without_cuda():
         pytest.skip("this host has CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_he_backend("tiny", device="cuda")
+
+
+@pytest.mark.parametrize("entry", ["init_he_backend", "HEContext",
+                                   "Gl2Context", "FourStepNTT",
+                                   "LeveledChain"])
+def test_entry_points_default_to_the_card(entry):
+    """Without a device argument every public entry point runs on the
+    card, so on a host without CUDA it raises instead of running on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    import matrix_fhe_tpu_torch as m
+    from matrix_fhe_tpu_torch.ops import ntt_large
+
+    p = get_params("tiny")
+    build = {"init_he_backend": lambda: m.init_he_backend("tiny"),
+             "HEContext": lambda: m.HEContext(p),
+             "Gl2Context": lambda: m.Gl2Context(p),
+             "FourStepNTT": lambda: ntt_large.FourStepNTT(
+                 ntt_large.FourStepPlan.make(64, ntt_large.generate_primes_1mod(
+                     1, 35, 128))),
+             "LeveledChain": lambda: m.LeveledChain(p)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()

@@ -1,16 +1,21 @@
-"""Kernels K1-K4 and K7 of the PyTorch port against the JAX package's
-Pallas kernels.
+"""Kernels K1-K4, K7, K10a's twiddle form, K11 and K12 of the PyTorch port
+against the JAX package's Pallas kernels.
 
 On the CPU each port wrapper runs its plain PyTorch version; the JAX side
 runs the Pallas kernels in interpret mode (SlicedStage, SlicedNttMulNtt,
-SlicedInvCompose, ExactComplexMatmul, SlicedGemm2x2), on the same numpy
-inputs.  Residues and fixed-point words must match bit for bit.  The
+SlicedInvCompose, ExactComplexMatmul, SlicedGemm2x2, PallasStage with a
+twiddle, the co-issue probe of scripts/micro_coissue.py), on the same numpy
+inputs; K11's kernel is a closure inside scripts/micro_vpu.py's main(), so
+its twin is a numpy transcription of it.  Residues and fixed-point words must match bit for bit.  The
 `cuda`-marked cases hold each CUDA kernel against its plain version and
 skip without a GPU.
 """
 
 import dataclasses
+import importlib.util
+import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,11 +32,13 @@ from matrix_fhe_tpu_torch.ops.cgemm import Gemm2x2
 from matrix_fhe_tpu_torch.ops import ddfloat as tdd
 from matrix_fhe_tpu_torch.ops import fpmatmul as tfp
 from matrix_fhe_tpu_torch.ops import modmath as tmm
+from matrix_fhe_tpu_torch.ops import probes
 from matrix_fhe_tpu_torch.ops.cuda_ntt import InvCompose, NttMulNtt, Stage
 from matrix_fhe_tpu_torch.ops.wcrt import scaled_inverse_tables
 
 P = get_params("tiny")
 T = build_tables(P)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def i64(x) -> torch.Tensor:
@@ -190,6 +197,116 @@ def test_fp_call_words_chain_matches(exact_exp2):
     np.testing.assert_array_equal(
         np.asarray(jfp.ExactComplexMatmul.words_to_f64(jw2[0], jw2[2])),
         tfp.ExactComplexMatmul.words_to_f64(tw2[0], tw2[2]).numpy())
+
+
+# -- K10a: the stage with its twiddle -------------------------------------------
+
+def _twiddle_case(side, seed):
+    """Two 35-bit limbs, K = 64: (table, data, twiddle) for one side."""
+    rng = np.random.default_rng(seed)
+    qs = generate_ntt_primes(2, 35, P.n, P.p)
+    table = residues(rng, qs, (64, 64))
+    if side == "right":     # D [L, R, K], twiddle rows repeating twice
+        data, tw = residues(rng, qs, (256, 64)), residues(rng, qs, (128, 64))
+    else:                   # D [L, B, K, M], twiddle [L, W, M]
+        data, tw = residues(rng, qs, (3, 64, 128)), residues(rng, qs, (64, 128))
+    return qs, table, data, tw
+
+
+@pytest.mark.parametrize("side", ["right", "batched_left"])
+def test_stage_twiddle_matches_pallas_stage(side):
+    """K10a's twiddle form: PallasStage(T, qs, twiddle_mont=tw, side=side)
+    in interpret mode, bit for bit (exact)."""
+    qs, table, data, tw = _twiddle_case(side, 22)
+    want = jax_join(pn.PallasStage(table, qs, twiddle_mont=tw, side=side,
+                                   row_tile=128)(*jax_split(data)))
+    got = Stage(table, qs, side, "cpu")(i64(data), twiddle_mont=i64(tw))
+    np.testing.assert_array_equal(u64(got), want)
+    assert len(np.unique(want)) > want.size // 2
+
+
+def test_forward_mul_is_ntt_times_twiddle():
+    """XNTT.forward_mul(x, tw) == NTT(x) * tw * 2^-64, exactly, and side
+    'left' refuses a twiddle as PallasStage does."""
+    from matrix_fhe_tpu_torch.ops.ntt import XNTT
+    rng = np.random.default_rng(23)
+    xn = XNTT(P, tables=T, device="cpu")
+    x = i64(residues(rng, P.moduli, (P.phi, P.n, P.n)))
+    tw = i64(residues(rng, P.moduli, (P.phi, P.n, P.n)))
+    q = tmm.moduli_col(P.moduli, 3, "cpu")
+    r_inv = tmm.moduli_col([pow(1 << 64, -1, int(m)) for m in P.moduli], 3,
+                           "cpu")
+    want = tmm.mul_mod(tmm.mul_mod(xn.forward(x), tw, q), r_inv, q)
+    assert torch.equal(xn.forward_mul(x, tw), want)
+    with pytest.raises(ValueError, match="left"):
+        Stage(T.w_fwd, P.moduli, "left", "cpu")(
+            x.reshape(len(P.moduli), P.phi, -1),
+            twiddle_mont=tw.reshape(len(P.moduli), P.phi, -1))
+
+
+# -- K11 and K12: the probes ------------------------------------------------------
+
+def _numpy_micro_vpu(v: np.ndarray, kind: str, k: int) -> np.ndarray:
+    """scripts/micro_vpu.py:28-48 (the body of its kern), in numpy u32."""
+    v = v.astype(np.uint32)
+    acc = v.copy()
+    with np.errstate(over="ignore"):
+        if kind == "addmul":
+            for i in range(k):
+                acc = acc * np.uint32(2654435761) + np.uint32(i | 1)
+        elif kind == "shift":
+            for i in range(k):
+                acc = ((acc >> np.uint32(1 + (i % 5)))
+                       | (acc << np.uint32(3))) & np.uint32(0x7FFFFFFF)
+        elif kind == "cmpadd":
+            c = v.copy()
+            for i in range(k):
+                s = acc + c
+                cc = (s < c).astype(np.uint32)
+                acc = s
+                c = cc + np.uint32(i)
+    return acc
+
+
+@pytest.mark.parametrize("kind,k", [("copy", 0), ("addmul", 32),
+                                    ("shift", 128), ("cmpadd", 48)])
+def test_u32_chain_matches_micro_vpu(kind, k):
+    """K11's plain version against the TPU probe's chain, bit for bit."""
+    x = np.random.default_rng(24).integers(0, 1 << 32, (2, 8, 16, 16),
+                                           dtype=np.uint64).astype(np.uint32)
+    got = probes.u32_chain(torch.from_numpy(x.view(np.int32)), kind, k)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  _numpy_micro_vpu(x, kind, k))
+
+
+def _coissue_inputs(grid, seed):
+    rng = np.random.default_rng(seed)
+    n, k = 256, 1280
+    return (rng.integers(-100, 100, (grid, 2, n, k), dtype=np.int8),
+            rng.integers(-100, 100, (1, 2, k, n), dtype=np.int8),
+            rng.integers(0, 1 << 32, (grid, n, n), dtype=np.uint32),
+            rng.integers(0, 1 << 32, (grid, n, n), dtype=np.uint32))
+
+
+@pytest.mark.parametrize("mode", ["dma", "mxu", "vpu", "both", "dep",
+                                  "dma+mxu"])
+def test_coissue_matches_micro_coissue(mode):
+    """K12's plain version against scripts/micro_coissue.py's kernel
+    (build(mode, reps=2, grid=2), interpret mode, traced in 32-bit mode as
+    the script's pallas_call needs), bit for bit."""
+    spec = importlib.util.spec_from_file_location(
+        "micro_coissue", os.path.join(ROOT, "scripts", "micro_coissue.py"))
+    mc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mc)
+    d8, t8, a, b = _coissue_inputs(2, 25)
+    with jax.enable_x64(False):
+        w32, wu = mc.build(mode, 2, 2)(*(jnp.asarray(v) for v in (d8, t8, a,
+                                                                    b)))
+    g32, gu = probes.coissue(torch.from_numpy(d8), torch.from_numpy(t8),
+                             torch.from_numpy(a.view(np.int32)),
+                             torch.from_numpy(b.view(np.int32)), mode, 2)
+    np.testing.assert_array_equal(g32.numpy(), np.asarray(w32))
+    np.testing.assert_array_equal(gu.numpy().view(np.uint32), np.asarray(wu))
 
 
 # -- K7 -----------------------------------------------------------------------
@@ -442,3 +559,54 @@ def test_cuda_gemm2x2_matches_plain(cuda, preset):
         want = gemm.plain(*ops)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["right", "batched_left"])
+def test_cuda_stage_twiddle_matches_plain(cuda, side):
+    """K10a's twiddle form on the card, and at the 55-bit P prime with a
+    one-row twiddle and rows that are not a multiple of the tile."""
+    qs, table, data, tw = _twiddle_case(side, 26)
+    st = Stage(table, qs, side, cuda)
+    d, t = i64(data).to(cuda), i64(tw).to(cuda)
+    got = _launched("stage_tw", lambda: st(d, twiddle_mont=t))
+    assert torch.equal(got.cpu(), st.plain(d, twiddle_mont=t).cpu())
+    if side == "right":
+        rng = np.random.default_rng(27)
+        wide = REF_P_MODULI[:1]
+        st = Stage(residues(rng, wide, (64, 64)), wide, side, cuda)
+        d = i64(residues(rng, wide, (70, 64))).to(cuda)
+        t = i64(residues(rng, wide, (1, 64))).to(cuda)
+        got = _launched("stage_tw", lambda: st(d, twiddle_mont=t))
+        assert torch.equal(got.cpu(), st.plain(d, twiddle_mont=t).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,k", [("copy", 0), ("addmul", 32),
+                                    ("shift", 128), ("cmpadd", 48)])
+def test_cuda_u32_chain_matches_plain(cuda, kind, k):
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    x = torch.randint(-(1 << 31), 1 << 31, (2, 8, 256, 256), generator=gen,
+                      dtype=torch.int32, device=cuda)
+    got = _launched("micro_vpu", lambda: probes.u32_chain(x, kind, k))
+    assert torch.equal(got, probes.u32_chain_plain(x, kind, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dma", "mxu", "vpu", "both", "dep",
+                                  "dma+mxu"])
+def test_cuda_coissue_matches_plain(cuda, mode):
+    """K12 at grid 4 and reps 2, and at K = 64 (fewer k-steps than the 32
+    fragment elements) with three planes."""
+    for grid, reps, k, planes in ((4, 2, 1280, 2), (2, 3, 64, 3)):
+        gen = torch.Generator(device=cuda).manual_seed(29)
+        d8, t8 = (torch.randint(-100, 100, shape, generator=gen,
+                                dtype=torch.int8, device=cuda)
+                  for shape in ((grid, planes, 256, k), (1, 2, k, 256)))
+        a, b = (torch.randint(-(1 << 31), 1 << 31, (grid, 256, 256),
+                              generator=gen, dtype=torch.int32, device=cuda)
+                for _ in range(2))
+        got = _launched("micro_coissue",
+                        lambda: probes.coissue(d8, t8, a, b, mode, reps))
+        want = probes.coissue_plain(d8, t8, a, b, mode, reps)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

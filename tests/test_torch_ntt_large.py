@@ -52,7 +52,7 @@ def test_tables_match_jax(primes, n):
     moduli = primes[35]
     plan = tnl.FourStepPlan.make(n, moduli)
     jntt = jnl.FourStepNTT(jnl.FourStepPlan.make(n, moduli))
-    ntt = tnl.FourStepNTT(plan)
+    ntt = tnl.FourStepNTT(plan, "cpu")
     for name in ("t1f", "t2f", "t2i"):
         np.testing.assert_array_equal(_u64(ntt._t[name]),
                                       getattr(jntt, "_" + name))
@@ -76,7 +76,7 @@ def test_tables_match_jax(primes, n):
 def test_forward_inverse_match_jax(primes, bits, n, nega):
     moduli = primes[bits]
     jntt = jnl.FourStepNTT(jnl.FourStepPlan.make(n, moduli, negacyclic=nega))
-    ntt = tnl.FourStepNTT(tnl.FourStepPlan.make(n, moduli, negacyclic=nega))
+    ntt = tnl.FourStepNTT(tnl.FourStepPlan.make(n, moduli, negacyclic=nega), "cpu")
     x = _residues(moduli, (3, n), seed=n + bits)
     want = np.asarray(jntt.forward(jnp.asarray(x)))
     got = ntt.forward(_i64(x))
@@ -93,7 +93,7 @@ def test_unequal_split_matches_jax(primes):
     assert (plan.n1, plan.n2) == (8, 16)
     jntt = jnl.FourStepNTT(jnl.FourStepPlan.make(128, moduli))
     x = _residues(moduli, (2, 128), seed=5)
-    got = tnl.FourStepNTT(plan).forward(_i64(x))
+    got = tnl.FourStepNTT(plan, "cpu").forward(_i64(x))
     np.testing.assert_array_equal(_u64(got),
                                   np.asarray(jntt.forward(jnp.asarray(x))))
 
@@ -105,7 +105,7 @@ def test_matches_sliced_kernel_interpret(primes):
 
     moduli = primes[35]
     sliced = pn.SlicedFourStepNTT(jnl.FourStepPlan.make(1024, moduli))
-    ntt = tnl.FourStepNTT(tnl.FourStepPlan.make(1024, moduli))
+    ntt = tnl.FourStepNTT(tnl.FourStepPlan.make(1024, moduli), "cpu")
     x = _residues(moduli, (2, 1024), seed=7)
     want = np.asarray(sliced.forward(jnp.asarray(x)))
     got = ntt.forward(_i64(x))
@@ -118,7 +118,7 @@ def test_matches_sliced_kernel_interpret(primes):
 def test_pointwise_mul_and_negacyclic_convolution(primes):
     moduli, n = primes[35], 128
     plan = tnl.FourStepPlan.make(n, moduli)
-    ntt = tnl.FourStepNTT(plan)
+    ntt = tnl.FourStepNTT(plan, "cpu")
     jntt = jnl.FourStepNTT(jnl.FourStepPlan.make(n, moduli))
     a = _residues(moduli, (1, n), seed=8)
     b = _residues(moduli, (1, n), seed=9)
@@ -148,7 +148,7 @@ def test_generator_is_the_smallest_primitive_root(primes):
 
 def test_kernel_refuses_unequal_split(primes):
     """K5 takes n1 == n2 only (as the TPU kernel, pallas_ntt.py:2052)."""
-    ntt = tnl.FourStepNTT(tnl.FourStepPlan.make(128, primes[35]))
+    ntt = tnl.FourStepNTT(tnl.FourStepPlan.make(128, primes[35]), "cpu")
     with pytest.raises(ValueError, match="n1 == n2"):
         ntt.forward_kernel(torch.zeros((2, 1, 128), dtype=torch.int64))
 
@@ -160,7 +160,7 @@ def test_bench_plan_tables_build_fast(primes):
 
     q = tnl.generate_primes_1mod(1, 35, 1 << 17)
     t0 = time.perf_counter()
-    ntt = tnl.FourStepNTT(tnl.FourStepPlan.make(1 << 16, q))
+    ntt = tnl.FourStepNTT(tnl.FourStepPlan.make(1 << 16, q), "cpu")
     assert time.perf_counter() - t0 < 20
     psi = pow(tnl._find_generator(q[0]), (q[0] - 1) // (1 << 17), q[0])
     tw = ntt._t["twist_f"][0]

@@ -25,14 +25,14 @@ def _u64(t):
 def test_uniform_a_matches(preset):
     """tiny (30-bit q) and small/mid (35/45-bit q) take different JAX code
     paths (u64 modulo vs the u32-pair Barrett)."""
-    got = trng.uniform_a(get_params(preset))
+    got = trng.uniform_a(get_params(preset), "cpu")
     np.testing.assert_array_equal(_u64(got),
                                   np.asarray(jrng.uniform_a(jax_params(preset))))
 
 
 @pytest.mark.parametrize("preset", ["tiny", "small", "mid"])
 def test_ternary_secret_matches(preset):
-    got = trng.ternary_secret(get_params(preset))
+    got = trng.ternary_secret(get_params(preset), "cpu")
     np.testing.assert_array_equal(
         _u64(got), np.asarray(jrng.ternary_secret(jax_params(preset))))
 
@@ -40,7 +40,7 @@ def test_ternary_secret_matches(preset):
 @pytest.mark.parametrize("preset", ["tiny", "small", "mid"])
 def test_gaussian_noise_matches(preset):
     """mid has the ref preset's W=512, n=64: the whole ref noise stream."""
-    got = _u64(trng.gaussian_noise(get_params(preset)))
+    got = _u64(trng.gaussian_noise(get_params(preset), "cpu"))
     want = np.asarray(jrng.gaussian_noise(jax_params(preset)))
     np.testing.assert_array_equal(got, want)
 
@@ -51,8 +51,9 @@ def test_fresh_streams_are_valid_and_seeded():
 
     def draw(seed):
         g = torch.Generator().manual_seed(seed)
-        return (trng.fresh_uniform_a(g, p), trng.fresh_ternary_secret(g, p),
-                trng.fresh_gaussian_noise(g, p))
+        return (trng.fresh_uniform_a(g, p, "cpu"),
+                trng.fresh_ternary_secret(g, p, "cpu"),
+                trng.fresh_gaussian_noise(g, p, "cpu"))
 
     a, s, e = draw(5)
     a2, s2, e2 = draw(5)

@@ -237,7 +237,7 @@ def matmul_setup():
     ctA = jctx.encrypt_pair(*pA, jsk, key=jax.random.key(11))
     ctB = jctx.encrypt_pair(*pB, jsk, key=jax.random.key(12))
     jtt = jhm.matmul(ctA, ctB)
-    hm = HEMatmul(HEContext(get_params("tiny"), ring="gl"))
+    hm = HEMatmul(HEContext(get_params("tiny"), ring="gl", device="cpu"))
     return jhm, jsk, ctA, ctB, jtt, hm, A, B
 
 
@@ -283,7 +283,7 @@ def test_homomorphic_matmul_end_to_end():
     decode ~= Y^H X.  tiny's Delta = 2^12 bounds the error by 0.35
     (tests/test_he_matmul.py:90)."""
     p = get_params("tiny")
-    ctx = HEContext(p, ring="gl")
+    ctx = HEContext(p, ring="gl", device="cpu")
     hm = HEMatmul(ctx)
     gen = torch.Generator().manual_seed(3)
     sk = ctx.generate_secret_key(gen)
@@ -302,4 +302,4 @@ def test_homomorphic_matmul_end_to_end():
 
 def test_requires_gl_ring():
     with pytest.raises(ValueError, match="gl"):
-        HEMatmul(HEContext(get_params("tiny"), ring="nega"))
+        HEMatmul(HEContext(get_params("tiny"), ring="nega", device="cpu"))
