@@ -31,14 +31,16 @@ and read just after:
      on the card against the CPU, and the ks_phases table (K10a's twiddle
      form with K1-K4);
   6. the probes: python3 -m matrix_fhe_tpu_torch.scripts.micro_vpu (K11)
-     and micro_coissue (K12) at their default shapes, then each kernel
-     against its plain version on a reduced grid.
+     and micro_coissue (K12) at their default shapes, then every variant
+     and mode against its plain version at those shapes and on a reduced
+     grid.
 
 Every kernel is held bit for bit against its plain PyTorch version at the
 shapes its path gives it, and both are timed, with the least time the card
-could take for the same work (bytes at 3.35 TB/s, or 32-bit multiply-adds
-at K11's measured rate, counted from the SASS of K1's inner loop) and,
-where one PyTorch call computes the same function, that call's time.
+could take for the same work (bytes at 3.35 TB/s, or 32-bit multiply-adds,
+counted from the SASS of K1's inner loop, at the card's IMAD rate of 64 a
+clock on each SM) and, where one PyTorch call computes the same function,
+that call's time.
 Fails (nonzero exit, no result line) without a CUDA device, on a build or
 launch error, on any disagreement, or when a path's check fails.
 
@@ -48,7 +50,6 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import re
@@ -64,6 +65,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from matrix_fhe_tpu_torch.utils.timing import cuda_ms  # noqa: E402
+
 TOL = 1e-4                 # src/main.cu:150, bench.py:310, examples/matmul.py:73
 NTT_N, NTT_L, NTT_B = 1 << 16, 16, 128      # bench.py:94-96
 NTT_ITERS = 20
@@ -71,26 +74,14 @@ CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core rate (data sheet)
-# 32-bit integer lanes: 64 a clock on each SM, half the 67 TFLOP/s fp32 rate
-INT32_OPS_PER_S = 33.5e12
+# 32-bit integer multiply-adds (IMAD): 64 a clock on each of 132 SMs at the
+# 1.98 GHz of the data sheet's 67 TFLOP/s fp32; two int32 operations each
+IMAD_PER_S = 64 * 132 * 1.98e9
+INT32_OPS_PER_S = 2 * IMAD_PER_S
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call from CUDA events, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def random_residues(moduli, shape, gen) -> torch.Tensor:
@@ -272,15 +263,8 @@ def ntt_path(bits: int, gen):
     be.reset_launches()
     spec = ntt.forward(x)
     fwd_ms = cuda_ms(lambda: ntt.forward(spec), NTT_ITERS)
-    a = x
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(NTT_ITERS):                 # chained, as bench.py measures
-        a = ntt.forward(a)
-    end.record()
-    torch.cuda.synchronize()
-    chained_ms = start.elapsed_time(end) / NTT_ITERS
+    # chained, as bench.py measures
+    chained_ms = cuda_ms(ntt.forward, NTT_ITERS, warmup=False, chain=x)
     inv_ms = cuda_ms(lambda: ntt.inverse(spec), NTT_ITERS)
     exact = torch.equal(ntt.inverse(spec), x)
     torch.cuda.synchronize()
@@ -293,7 +277,6 @@ def ntt_path(bits: int, gen):
         raise AssertionError(f"{bits}-bit NTT roundtrip inverse(forward(x)) != x")
     if spec.shape != x.shape or not bool((spec >= 0).all()):
         raise AssertionError("NTT spectrum has the wrong shape or values")
-    del a
 
     log(f"[ntt{bits}] K5 against its plain version at B={B}")
     kt = ntt._kernel_tables
@@ -397,17 +380,6 @@ def matmul_path():
     return [row], summary
 
 
-def event_ms(fn) -> float:
-    """Milliseconds of one call from CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end)
-
-
 def gl2_path():
     """examples/matmul_gl2.py on the port at ref: C = Y^H X, ciphertext in,
     standard ciphertext out, on 512 packed 64x64 lanes; then K7, K2 at
@@ -490,7 +462,8 @@ def gl2_path():
                      ("relinearize", lambda: gr.relinearize(tt, ks)),
                      ("decrypt_decode", lambda: ctx.decrypt_and_decode(
                          ct_out, sk, delta_override=d2))):
-        phases[name] = statistics.median(event_ms(fn) for _ in range(3))
+        phases[name] = statistics.median(cuda_ms(fn, warmup=False)
+                                         for _ in range(3))
     log("[gl2] phase ms (median of 3 after the first call, CUDA events): "
         + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
 
@@ -596,36 +569,15 @@ def gl2_path():
     return rows, summary
 
 
-def _move_chain_keys(src, dst) -> None:
-    """Install the keys a LeveledChain made into another chain over the
-    same parameters on another device (the tiny card-vs-CPU check)."""
-    from matrix_fhe_tpu_torch.models.keyswitch import (FullGaloisKeys,
-                                                       GaloisKeys, RelinKey)
-    dev = dst.device
-
-    def move(key):
-        return RelinKey(*(tuple(t.to(dev) for t in part) for part in key))
-
-    for level, rlk in src._rlk.items():
-        dst._rlk[level] = move(rlk)
-    for k, gk in src._gk.items():
-        if k[0] == "full":
-            dst._gk[k] = FullGaloisKeys.from_keys(
-                dst.rc(k[1]), {j: move(v) for j, v in gk._gk._keys.items()})
-        else:
-            dst._gk[k] = GaloisKeys.from_keys(
-                dst.rc(k[0]), {j: v.cpu().numpy() for j, v in gk._perms.items()},
-                {j: move(v) for j, v in gk._keys.items()})
-
-
 def leveled_path():
     """Key switching at ref: examples/relinearize.py and examples/leveled.py
     on the port's LeveledChain (the preset's P basis, dnum = 4), a fresh
     complex pair, a tiny leveled circuit on the card against the CPU, and
-    the ks_phases table; then K10a's twiddle form against its plain
-    version at the QP X-NTT shape and at a batched_left shape (outside the
+    the ks_phases table; then K10a's twiddle form and K1 against their plain
+    versions at the QP X-NTT and QP W-CRT shapes of the key switch, and the
+    twiddle form's batched_left side, which no path runs (outside the
     counted run).  Returns (rows, summary, launches)."""
-    from matrix_fhe_tpu_torch import LeveledChain
+    from matrix_fhe_tpu_torch import LeveledChain, convert
     from matrix_fhe_tpu_torch.config import get_params
     from matrix_fhe_tpu_torch.models.keyswitch import w_automorphism_perm
     from matrix_fhe_tpu_torch.ops import _backend as be
@@ -667,7 +619,7 @@ def leveled_path():
     ct = step("multiply_relinearize_first",
               lambda: rc.multiply_relinearize(ct1, ct2, rlk))
     mr_ms = statistics.median(
-        event_ms(lambda: rc.multiply_relinearize(ct1, ct2, rlk))
+        cuda_ms(lambda: rc.multiply_relinearize(ct1, ct2, rlk), warmup=False)
         for _ in range(3))
     def ring_mul(cx, a, b):
         return cx.xntt.inverse(cx.xntt.forward_mul(
@@ -706,7 +658,8 @@ def leveled_path():
     # steady state of each step (the first calls above build the reduced
     # chain's tables and the level-1 contexts)
     x1 = chain.mod_switch(x, 1)
-    steady = {name: statistics.median(event_ms(fn) for _ in range(3))
+    steady = {name: statistics.median(cuda_ms(fn, warmup=False)
+                                      for _ in range(3))
               for name, fn in (("multiply_l0", lambda: chain.multiply(x, y)),
                                ("rescale", lambda: chain.rescale(z)),
                                ("multiply_l1", lambda: chain.multiply(zr, x1)),
@@ -744,6 +697,8 @@ def leveled_path():
         f"(limit 1e-4)")
     if not (np.isfinite(pair_err) and pair_err < TOL):
         raise AssertionError(f"fresh complex pair err {pair_err} >= {TOL}")
+    qp = rc.qp_moduli
+    fwd_x, fwd_w = rc.xntt_qp._fwd, rc.wt_qp._fwd     # the switch's stages
     del chain, ctx, rc, rlk, re, im, pr, pi, dr, di
     torch.cuda.empty_cache()
 
@@ -758,7 +713,7 @@ def leveled_path():
     cpu_chain = LeveledChain(pt, seed=7, device="cpu")
     for chain_t in (cpu_chain, LeveledChain(pt, seed=7, device="cuda")):
         if chain_t is not cpu_chain:
-            _move_chain_keys(cpu_chain, chain_t)
+            convert.leveled_keys(cpu_chain, chain_t)
         c = np.random.default_rng(11).integers(0, 1 << 16, (pt.phi, pt.n, pt.n))
         mt = chain_t.ctx(0).wt.forward(torch.stack(
             [torch.from_numpy(c % int(q)) for q in pt.moduli]).to(
@@ -775,36 +730,43 @@ def leveled_path():
     log("[check] tiny leveled circuit (multiply, rescale, rotate, decrypt): "
         "card == CPU plain path, bit for bit")
 
-    # -- K10a's twiddle form against its plain version ------------------------
+    # -- K10a's twiddle form and K1 at the key switch's QP shapes ----------
     from matrix_fhe_tpu_torch.ops.cuda_ntt import Stage
-    from matrix_fhe_tpu_torch.ops.ntt import XNTT
-    from matrix_fhe_tpu_torch.tables import build_tables
     gen = torch.Generator(device="cuda").manual_seed(13)
-    qp = p.moduli + p.p_moduli
-    ext = dataclasses.replace(p, name="ref-qp", moduli=qp, p_moduli=())
-    fwd = XNTT(ext, tables=build_tables(ext), device="cuda")._fwd
     d = random_residues(qp, (W * n, n), gen)
     tw = random_residues(qp, (W * n, n), gen)
     rows = [check_kernel(
         f"stage_tw (K10a, QP X-NTT x twiddle, {len(qp)} limbs)", "stage_tw",
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:460",
-        lambda: fwd.kernel(d, tw), lambda: fwd.plain(d, tw), [fwd.table, d, tw],
-        {"products": stage_products(fwd, d) + d.numel()})]
+        lambda: fwd_x.kernel(d, tw), lambda: fwd_x.plain(d, tw),
+        [fwd_x.table, d, tw],
+        {"products": stage_products(fwd_x, d) + d.numel()})]
     del d, tw
-    # the four-step stage shape: 256 x 256 tables, a batch of 16 per limb
+    d = random_residues(qp, (W, n * n), gen)
+    rows.append(check_kernel(
+        f"stage (K1, key-switch QP W-CRT forward, {len(qp)} limbs, "
+        f"[{len(qp)}, {W}, {n * n}])", "stage",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
+        lambda: fwd_w.kernel(d), lambda: fwd_w.plain(d), [fwd_w.table, d],
+        {"products": stage_products(fwd_w, d)}))
+    del d, fwd_x, fwd_w
+    # batched_left runs on no path (launch key stage_tw_batched): held at
+    # the four-step stage shape, 256 x 256 tables and a batch of 16 a limb,
+    # and logged, not listed among the path's kernels
     tbl = random_residues(p.moduli, (256, 256), gen)
     bl = Stage(tbl.cpu().numpy().view(np.uint64), p.moduli, "batched_left",
                "cuda")
     d = random_residues(p.moduli, (16, 256, 256), gen)
     tw = random_residues(p.moduli, (256, 256), gen)
-    rows.append(check_kernel(
-        f"stage_tw (K10a, batched_left x twiddle, [{L}, 16, 256, 256])",
-        "stage_tw", "matrix_fhe_tpu_torch/csrc/stage.cu",
+    check_kernel(
+        f"stage_tw (K10a, batched_left x twiddle, [{L}, 16, 256, 256], "
+        f"on no path)", "stage_tw_batched", "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:460",
         lambda: bl.kernel(d, tw), lambda: bl.plain(d, tw), [bl.table, d, tw],
-        {"products": stage_products(bl, d) + d.numel()}))
-    del d, tw, fwd, bl
+        {"products": stage_products(bl, d) + d.numel()})
+    del d, tw, bl
     torch.cuda.empty_cache()
 
     summary = {"ref_relin_noise": relin_noise,
@@ -819,43 +781,58 @@ def leveled_path():
 
 
 def probe_path():
-    """The probe entry points at their default shapes, counted, then K11
-    and K12 against their plain versions on reduced grids, and the rows of
-    both kernels.  Returns (rows, summary, addmul steps per second)."""
+    """The probe entry points at their default shapes, counted; then every
+    K11 variant and K12 mode against its plain version at those shapes and
+    on a reduced grid, and the rows of both kernels.  Returns (rows,
+    summary)."""
     from matrix_fhe_tpu_torch.ops import _backend as be
     from matrix_fhe_tpu_torch.ops import probes
     from matrix_fhe_tpu_torch.scripts import micro_coissue, micro_vpu
 
-    shape = (16, 128, 256, 256)
+    shape, small_shape = (16, 128, 256, 256), (2, 8, 256, 256)
+    grid, reps = 64, 8
     be.reset_launches()
     vpu = micro_vpu.run(shape, 30)
-    co = micro_coissue.run(8, 64, 30)
+    co = micro_coissue.run(reps, grid, 30)
     torch.cuda.synchronize()
     launches = dict(be.LAUNCHES)
     log(f"[probe] launches {launches}")
 
-    # reduced grids, every variant and mode, bit for bit
-    xs = micro_vpu.random_u32((2, 8, 256, 256), 1)
-    err_vpu = max(max_abs_diff(probes.u32_chain(xs, kind, k),
+    # every variant and mode bit for bit, on the scripts' own inputs at
+    # their default shapes, and on a reduced grid
+    x = micro_vpu.random_u32(shape, 0)
+    xs = micro_vpu.random_u32(small_shape, 1)
+    err_vpu = {}
+    for kind, k in micro_vpu.VARIANTS:
+        err_vpu[kind, k] = max_abs_diff(probes.u32_chain(x, kind, k),
+                                        probes.u32_chain_plain(x, kind, k))
+        reduced = max_abs_diff(probes.u32_chain(xs, kind, k),
                                probes.u32_chain_plain(xs, kind, k))
-                  for kind, k in micro_vpu.VARIANTS)
+        log(f"[probe] K11 {kind} k={k}: max_abs_err {err_vpu[kind, k]} at "
+            f"{list(shape)}, {reduced} at {list(small_shape)}")
+        if err_vpu[kind, k] or reduced:
+            raise AssertionError(f"K11 {kind} disagrees with its plain version")
+    d8, t8, a, b = micro_coissue.make_inputs(grid)
     small = micro_coissue.make_inputs(4, seed=1)
-    err_co = max(max_abs_diff(probes.coissue(*small, mode, 2),
-                              probes.coissue_plain(*small, mode, 2))
-                 for mode in micro_coissue.MODES)
-    log(f"[probe] reduced grids: K11 max_abs_err {err_vpu} over "
-        f"{len(micro_vpu.VARIANTS)} variants, K12 max_abs_err {err_co} over "
-        f"{len(micro_coissue.MODES)} modes")
-    if err_vpu or err_co:
-        raise AssertionError("a probe kernel disagrees with its plain version")
+    err_co = {}
+    for mode in micro_coissue.MODES:
+        err_co[mode] = max_abs_diff(
+            probes.coissue(d8, t8, a, b, mode, reps),
+            probes.coissue_plain(d8, t8, a, b, mode, reps))
+        reduced = max_abs_diff(probes.coissue(*small, mode, 2),
+                               probes.coissue_plain(*small, mode, 2))
+        log(f"[probe] K12 {mode}: max_abs_err {err_co[mode]} at grid {grid} "
+            f"reps {reps}, {reduced} at grid 4 reps 2")
+        if err_co[mode] or reduced:
+            raise AssertionError(f"K12 {mode} disagrees with its plain version")
     del xs, small
 
     rows = []
-    x = micro_vpu.random_u32(shape, 0)
     el = x.numel()
     for kind, k in (("copy", 0), ("addmul", 512)):
         ms = next(r["ms"] for r in vpu if (r["kind"], r["k"]) == (kind, k))
-        plain_ms = cuda_ms(lambda: probes.u32_chain_plain(x, kind, k), 1)
+        plain_ms = cuda_ms(lambda: probes.u32_chain_plain(x, kind, k),
+                           warmup=False)
         lib = None
         if kind == "copy":
             dst = torch.empty_like(x)
@@ -865,7 +842,8 @@ def probe_path():
                      "key": "micro_vpu", "route": "cuda",
                      "source": "matrix_fhe_tpu_torch/csrc/micro_vpu.cu",
                      "replaces": "scripts/micro_vpu.py:28",
-                     "max_abs_err": err_vpu, "ms": ms, "plain_ms": plain_ms,
+                     "max_abs_err": err_vpu[kind, k], "ms": ms,
+                     "plain_ms": plain_ms,
                      "library_ms": lib, "bytes": 2 * 4 * el,
                      "work": {"int32": ops}})
         log(f"[kernel] {rows[-1]['name']}: kernel {ms:.3f} ms, plain "
@@ -875,9 +853,7 @@ def probe_path():
     addmul = next(r for r in vpu if (r["kind"], r["k"]) == ("addmul", 512))
     steps_per_s = el * 512 / (addmul["ms"] / 1e3)
 
-    d8, t8, a, b = micro_coissue.make_inputs(64)
     G, P, N, K = d8.shape
-    reps = 8
     # the library yardstick of the dots: one torch._int_mm over both planes
     # (sum_p d8[g, p] @ t8[0, p]), reps / P times
     d8c = d8.permute(0, 2, 1, 3).reshape(G * N, P * K)
@@ -885,7 +861,7 @@ def probe_path():
     for mode in ("mxu", "both"):
         ms = co["us_per_cell"][mode] * G / 1e3
         plain_ms = cuda_ms(lambda: probes.coissue_plain(d8, t8, a, b, mode,
-                                                        reps), 1)
+                                                        reps), warmup=False)
         lib = cuda_ms(lambda: torch._int_mm(d8c, t8c), 30) * (reps // P) \
             if mode == "mxu" else None
         work = {"int8": 2 * G * N * K * N * reps}
@@ -896,7 +872,8 @@ def probe_path():
                      "key": "micro_coissue", "route": "cuda",
                      "source": "matrix_fhe_tpu_torch/csrc/micro_coissue.cu",
                      "replaces": "scripts/micro_coissue.py:55",
-                     "max_abs_err": err_co, "ms": ms, "plain_ms": plain_ms,
+                     "max_abs_err": err_co[mode], "ms": ms,
+                     "plain_ms": plain_ms,
                      "library_ms": lib,
                      "bytes": nbytes([d8, t8, a, b]) + 2 * 4 * G * N * N,
                      "work": work})
@@ -907,17 +884,18 @@ def probe_path():
     for row in rows:
         row["launches"] = launches.get(row.pop("key"), 0)
     summary = {"k11": vpu, "k12": co, "k11_addmul_steps_per_s": steps_per_s}
-    return rows, summary, steps_per_s
+    return rows, summary
 
 
-def finalize_rows(rows, imads: float, imad_rate: float) -> None:
+def finalize_rows(rows, imads: float) -> None:
     """bound_ms (the larger of bytes over the memory rate and each type of
-    operations over its peak) and bound_by, for every row."""
+    operations over its peak; a 64-bit product is `imads` IMADs) and
+    bound_by, for every row."""
     peaks = {"int8": INT8_OPS_PER_S, "int32": INT32_OPS_PER_S}
     for row in rows:
         t_bytes = row.pop("bytes") / HBM_BYTES_PER_S
         work = row.pop("work")
-        t_ops = max(v * imads / imad_rate if k == "products" else v / peaks[k]
+        t_ops = max(v * imads / IMAD_PER_S if k == "products" else v / peaks[k]
                     for k, v in work.items())
         row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
@@ -1005,15 +983,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     ctx.roundtrip(re_t, im_t, sk)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(7):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        ctx.roundtrip(re_t, im_t, sk)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+    times = [cuda_ms(lambda: ctx.roundtrip(re_t, im_t, sk), warmup=False)
+             for _ in range(7)]
     rt_ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated()
     log(f"[perf] ref roundtrip median {rt_ms:.3f} ms over {len(times)} runs "
@@ -1084,7 +1055,7 @@ def main() -> int:
 
     # -- the probes (K11, K12) ---------------------------------------------
     t_path = time.perf_counter()
-    probe_rows, probe_summary, imad_rate = probe_path()
+    probe_rows, probe_summary = probe_path()
     rows += probe_rows
     summary.update(probe_summary)
     walls["6_probes"] = time.perf_counter() - t_path
@@ -1092,9 +1063,10 @@ def main() -> int:
     for row in rows:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its path")
-    finalize_rows(rows, imads, imad_rate)
-    log(f"[bound] 32-bit multiply-add rate (K11 addmul, one IMAD a step): "
-        f"{imad_rate:.4e} /s; {imads:.2f} of them per 64-bit product")
+    finalize_rows(rows, imads)
+    log(f"[bound] IMAD peak {IMAD_PER_S:.4e} /s (64 a clock on each of 132 "
+        f"SMs at 1.98 GHz), {imads:.2f} IMADs per 64-bit product; K11 addmul "
+        f"measured {probe_summary['k11_addmul_steps_per_s']:.4e} steps/s")
     walls["total"] = time.perf_counter() - t_run
     summary["wall_s"] = walls
     log("[wall] " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))

@@ -56,7 +56,8 @@ class Stage:
     (sides 'right' and 'batched_left', as PallasStage): the output is then
     multiplied by tw[l, r mod tw_rows, k] ('right', twiddle [L, tw_rows, W])
     or tw[l, w, m] ('batched_left', twiddle [L, W, M]) mod q, a Montgomery
-    product in the kernel's epilogue (launch key "stage_tw").  With a key or
+    product in the kernel's epilogue (launch key "stage_tw", or
+    "stage_tw_batched" for 'batched_left', which no path runs).  With a key or
     a ciphertext in storage form as the twiddle, this is the X-NTT fused
     with the pointwise ring product of the key switch.
     """
@@ -148,7 +149,8 @@ class Stage:
         if twiddle_mont is None:
             key, tw, tw_rows = "stage", None, 1
         else:
-            key, tw = "stage_tw", twiddle_mont
+            key = "stage_tw" if self.side == "right" else "stage_tw_batched"
+            tw = twiddle_mont
             tw_rows = self._check_twiddle(tw, out.shape)
             be.check(tw, "twiddle_mont", I64, tuple(tw.shape))
         be.launch(key, "mf_stage", data.device, a, b, out, self.consts, tw,

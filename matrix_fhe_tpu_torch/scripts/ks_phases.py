@@ -32,19 +32,7 @@ from ..config import get_params
 from ..models import rng as refrng
 from ..models.he import HEContext
 from ..models.keyswitch import RelinContext
-
-
-def mean_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+from ..utils.timing import cuda_ms
 
 
 def run(preset: str = "mid", iters: int = 5, p_basis: str = "preset"
@@ -64,25 +52,25 @@ def run(preset: str = "mid", iters: int = 5, p_basis: str = "preset"
 
     out = {"preset": preset, "p_basis": p_basis,
            "p_bits": [q.bit_length() for q in rc.p_moduli], "dnum": rc.dnum}
-    out["multiply_relinearize_ms"] = mean_ms(
+    out["multiply_relinearize_ms"] = cuda_ms(
         lambda: rc.multiply_relinearize(ct, ct, rlk), iters)
     print(f"multiply_relinearize: {out['multiply_relinearize_ms']:10.3f} ms",
           flush=True)
     d0c, d1c, d2wc = rc._mr_front(ct, ct)
-    out["front_ms"] = mean_ms(lambda: rc._mr_front(ct, ct), iters)
+    out["front_ms"] = cuda_ms(lambda: rc._mr_front(ct, ct), iters)
     print(f"front (tensor product + W-CRT inverse): {out['front_ms']:10.3f} ms",
           flush=True)
     ksb = ksa = None
     out["digit_ms"] = []
     for i in range(rc.dnum):
-        ms = mean_ms(lambda i=i, b=ksb, a=ksa: rc._digit_step(
+        ms = cuda_ms(lambda i=i, b=ksb, a=ksa: rc._digit_step(
             i, d2wc, rlk.b[i], rlk.a[i], b, a), iters)
         out["digit_ms"].append(ms)
         print(f"digit {i} (extend + QP W-CRT + NTT x key): {ms:10.3f} ms",
               flush=True)
         ksb, ksa = rc._digit_step(i, d2wc, rlk.b[i], rlk.a[i], ksb, ksa)
-    out["finish_ms"] = mean_ms(lambda: rc._mr_finish(d0c, d1c, ksb, ksa),
-                               iters)
+    out["finish_ms"] = cuda_ms(lambda: rc._mr_finish(d0c, d1c, ksb, ksa),
+                              iters)
     print(f"finish (QP inverse + ModDown + W-CRT): {out['finish_ms']:10.3f} ms",
           flush=True)
     print(f"digits total: {sum(out['digit_ms']):.3f} ms over {rc.dnum} digits",

@@ -26,6 +26,7 @@ from typing import Dict
 import torch
 
 from ..ops import probes
+from ..utils.timing import cuda_ms
 
 N = 256          # tile side
 K = 1280         # contraction depth (5 digit planes at radix 256)
@@ -48,19 +49,6 @@ def make_inputs(grid: int, seed: int = 0):
     return d8, t8, a, b
 
 
-def mean_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def baseline(res: Dict[str, float]) -> float:
     """The dma cell, or 0 when it is slower than a compute cell (then it
     is no fixed cost to subtract, as the TPU script decides)."""
@@ -76,7 +64,7 @@ def run(reps: int = 8, grid: int = 64, iters: int = 30) -> Dict:
     d8, t8, a, b = make_inputs(grid)
     per_cell = {}
     for mode in MODES:
-        ms = mean_ms(lambda mode=mode: probes.coissue(d8, t8, a, b, mode,
+        ms = cuda_ms(lambda mode=mode: probes.coissue(d8, t8, a, b, mode,
                                                       reps), iters)
         per_cell[mode] = ms * 1e3 / grid
         print(f"{mode:8s} {per_cell[mode]:8.2f} us/cell   "

@@ -20,6 +20,7 @@ from typing import Dict, List, Sequence
 import torch
 
 from ..ops import probes
+from ..utils.timing import cuda_ms
 
 VARIANTS = (("copy", 0), ("addmul", 32), ("addmul", 128), ("shift", 128),
             ("cmpadd", 48), ("addmul", 512))
@@ -33,22 +34,6 @@ def random_u32(shape: Sequence[int], seed: int) -> torch.Tensor:
                          dtype=torch.int32, device="cuda")
 
 
-def chained_ms(fn, x: torch.Tensor, iters: int) -> float:
-    """Milliseconds per call of y = fn(y), `iters` calls between CUDA
-    events after one warm-up call."""
-    fn(x)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    y = x
-    start.record()
-    for _ in range(iters):
-        y = fn(y)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def run(shape: Sequence[int] = (16, 128, 256, 256), iters: int = 30
         ) -> List[Dict]:
     x = random_u32(shape, 0)
@@ -56,8 +41,8 @@ def run(shape: Sequence[int] = (16, 128, 256, 256), iters: int = 30
     cells = shape[0] * shape[1]
     rows = []
     for kind, k in VARIANTS:
-        ms = chained_ms(lambda v, kind=kind, k=k: probes.u32_chain(v, kind, k),
-                        x, iters)
+        ms = cuda_ms(lambda v, kind=kind, k=k: probes.u32_chain(v, kind, k),
+                     iters, chain=x)
         s = ms / 1e3
         row = {"kind": kind, "k": k, "ms": ms,
                "gb_per_s": 2 * 4 * el / s / 1e9,

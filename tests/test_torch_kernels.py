@@ -569,7 +569,8 @@ def test_cuda_stage_twiddle_matches_plain(cuda, side):
     qs, table, data, tw = _twiddle_case(side, 26)
     st = Stage(table, qs, side, cuda)
     d, t = i64(data).to(cuda), i64(tw).to(cuda)
-    got = _launched("stage_tw", lambda: st(d, twiddle_mont=t))
+    key = "stage_tw" if side == "right" else "stage_tw_batched"
+    got = _launched(key, lambda: st(d, twiddle_mont=t))
     assert torch.equal(got.cpu(), st.plain(d, twiddle_mont=t).cpu())
     if side == "right":
         rng = np.random.default_rng(27)
@@ -585,11 +586,14 @@ def test_cuda_stage_twiddle_matches_plain(cuda, side):
 @pytest.mark.parametrize("kind,k", [("copy", 0), ("addmul", 32),
                                     ("shift", 128), ("cmpadd", 48)])
 def test_cuda_u32_chain_matches_plain(cuda, kind, k):
+    """K11 at one pass of its grid-stride loop, and at [4, 16, 256, 256]
+    (2^20 16-byte vectors over at most 132 x 16 blocks of 256: two)."""
     gen = torch.Generator(device=cuda).manual_seed(28)
-    x = torch.randint(-(1 << 31), 1 << 31, (2, 8, 256, 256), generator=gen,
-                      dtype=torch.int32, device=cuda)
-    got = _launched("micro_vpu", lambda: probes.u32_chain(x, kind, k))
-    assert torch.equal(got, probes.u32_chain_plain(x, kind, k))
+    for shape in ((2, 8, 256, 256), (4, 16, 256, 256)):
+        x = torch.randint(-(1 << 31), 1 << 31, shape, generator=gen,
+                          dtype=torch.int32, device=cuda)
+        got = _launched("micro_vpu", lambda: probes.u32_chain(x, kind, k))
+        assert torch.equal(got, probes.u32_chain_plain(x, kind, k))
 
 
 @pytest.mark.cuda
