@@ -37,10 +37,13 @@ and read just after:
 
 Every kernel is held bit for bit against its plain PyTorch version at the
 shapes its path gives it, and both are timed, with the least time the card
-could take for the same work (bytes at 3.35 TB/s, or 32-bit multiply-adds,
-counted from the SASS of K1's inner loop, at the card's IMAD rate of 64 a
-clock on each SM) and, where one PyTorch call computes the same function,
-that call's time.
+could take for the same work (bytes at 3.35 TB/s; K1 and K10a's u8 digit
+products at the int8 tensor-core rate of 1,979 TOP/s; the 64 x 64-bit
+products of K2-K7 as 32-bit multiply-adds, counted from the SASS of K6's
+inner loop, at the card's IMAD rate of 64 a clock on each SM) and, where
+one PyTorch call computes the same function, that call's time.  For each
+K1 and K10a row a [bound] line logs the byte and int8 bounds apart and the
+IMAD bound of the earlier 64-bit route.
 Fails (nonzero exit, no result line) without a CUDA device, on a build or
 launch error, on any disagreement, or when a path's check fails.
 
@@ -108,12 +111,13 @@ def nbytes(x) -> int:
 
 
 def check_kernel(name, key, source, replaces, kernel_fn, plain_fn, inputs,
-                 work, reps=5, library_fn=None):
+                 work, reps=5, library_fn=None, imad_products=None):
     """Hold one kernel against its plain version (bit-exact) and time both;
     `key` names its launch counter, `inputs` are the tensors the function
     reads (with the outputs, they make the bytes of the bound) and `work`
     its operations by type ("products": 64 x 64 -> 128-bit products,
-    "int32", "int8")."""
+    "int32", "int8"); `imad_products`, where given, the products of an
+    earlier 64-bit route, whose IMAD bound the row keeps beside its own."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -126,21 +130,45 @@ def check_kernel(name, key, source, replaces, kernel_fn, plain_fn, inputs,
         + ("" if library_ms is None else f", library {library_ms:.3f} ms"))
     if err != 0:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
-    return {"name": name, "key": key, "route": "cuda", "source": source,
-            "replaces": replaces, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bytes": nbytes(inputs) + nbytes(got), "work": work}
+    row = {"name": name, "key": key, "route": "cuda", "source": source,
+           "replaces": replaces, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bytes": nbytes(inputs) + nbytes(got), "work": work}
+    if imad_products is not None:
+        row["imad_products"] = imad_products
+    return row
 
 
 def stage_products(stage, data) -> int:
-    """64-bit products of one K1 / K10a call: L x rows x K x cols (plus one
-    per output for a twiddle, counted by the caller)."""
+    """64-bit products of one K1 / K10a call on a 64 x 64-bit route: L x
+    rows x K x cols (plus one per output for a twiddle, counted by the
+    caller).  The bound of the earlier IMAD route, kept beside the int8
+    one."""
     L, W, K = stage.table.shape
     if stage.side == "left":
         return L * W * K * data.shape[2]
     if stage.side == "batched_left":
         return L * data.shape[1] * W * K * data.shape[3]
     return L * data.shape[1] * K * W
+
+
+def stage_work(stage, data, twiddle=False) -> dict:
+    """Operations of one K1 / K10a call by the digit-plane method: u8
+    products, 2 x rows x cols x (d_l K) x d_l a limb, with d_l =
+    ceil(bits / 8) data digits and table planes, on every side (the right
+    side's kernel reads each int64 as 8 byte slots, 8 K digit rows: the
+    zero slots are the design's cost, not the function's work); a twiddle
+    adds one Montgomery product an output.  "imad_products" is the earlier
+    route's count."""
+    from matrix_fhe_tpu_torch.ops.cuda_ntt import digit_count
+    L, W, K = stage.table.shape
+    outs = (data.numel() // K) * W // L      # outputs of one limb
+    int8 = sum(2 * outs * d * K * d for d in map(digit_count, stage.moduli))
+    work = {"int8": int8}
+    if twiddle:
+        work["products"] = L * outs
+    return {"work": work,
+            "imad_products": stage_products(stage, data) + L * outs * twiddle}
 
 
 def _sass_loops(lines):
@@ -159,34 +187,69 @@ def _sass_loops(lines):
     return insts, loops
 
 
-def imads_per_product() -> float:
-    """32-bit multiply-adds (IMAD, IMAD.WIDE, IMAD.HI, IMAD.X; not the
-    IMAD.MOV / SHL / IADD forms) per 64 x 64 -> 128-bit product in the inner
-    loop of K1 (stage_kernel), from cuobjdump -sass of the built library:
-    the loop with the most of them, less its nested loops (the tile loads),
-    over its 16 x 4 x 4 = 256 products.  K2-K7 share the same product
-    helper (csrc/modarith.cuh)."""
+def sass_functions() -> dict:
+    """cuobjdump -sass of the built library, {function name: SASS}."""
     from matrix_fhe_tpu_torch.ops import _backend as be
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", be.LIBRARY], check=True,
                           capture_output=True, text=True).stdout
-    funcs = re.split(r"\n\s*Function : ", sass)
-    body = next(f for f in funcs if f.split()[0].find("stage_kernel") >= 0)
+    return {f.split()[0]: f for f in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+def _opcode(text):
+    return text.split()[1] if text.startswith("@") else text.split()[0]
+
+
+def imads_per_product(funcs):
+    """32-bit multiply-adds (IMAD, IMAD.WIDE, IMAD.HI, IMAD.X; not the
+    IMAD.MOV / SHL / IADD forms) per 64 x 64 -> 128-bit product in the inner
+    loop of K6 (cgemm_kernel, csrc/cgemm.cu): the loop with the most of
+    them, less its nested loops (the tile loads).  Its products come from
+    its shared-memory loads, whatever the compiler's unrolling: each k-step
+    reads 16 residues of 8 bytes (4 each of Ar, Ai, Br, Bi) and makes
+    4 x 4 x 4 = 64 products, so the loop's products are its LDS bytes / 2.
+    K2-K7 share the product helper (csrc/modarith.cuh: mac_u128).  Returns
+    (IMADs per product, IMADs, products)."""
+    body = next(f for name, f in funcs.items() if "cgemm_kernel" in name)
     insts, loops = _sass_loops(body.splitlines())
 
     def is_imad(text):
-        op = text.split()[0] if not text.startswith("@") else text.split()[1]
+        op = _opcode(text)
         return op.startswith("IMAD") and not any(
             k in op for k in ("MOV", "SHL", "IADD"))
 
-    def count(lo, hi):
+    def lds_bytes(text):
+        op = _opcode(text)
+        if not op.startswith("LDS"):
+            return 0
+        width = re.search(r"\.(32|64|128)\b", op)
+        return int(width.group(1)) // 8 if width else 4
+
+    def count(lo, hi, measure):
         inner = [(a, b) for a, b in loops if lo <= a and b < hi
                  and (a, b) != (lo, hi)]
-        return sum(1 for a, t in insts if lo <= a <= hi and is_imad(t)
+        return sum(measure(t) for a, t in insts if lo <= a <= hi
                    and not any(x <= a <= y for x, y in inner))
 
-    best = max(count(lo, hi) for lo, hi in loops)
-    return best / 256
+    lo, hi = max(loops, key=lambda r: count(*r, is_imad))
+    imads = count(lo, hi, is_imad)
+    nbytes = count(lo, hi, lds_bytes)
+    if nbytes == 0 or nbytes % 128:
+        raise AssertionError(f"cgemm inner loop reads {nbytes} B of shared "
+                             "memory, not a whole number of 16 x 8 B k-steps")
+    products = nbytes // 2
+    return imads / products, imads, products
+
+
+def stage_tensor_core_ops(funcs) -> int:
+    """Warpgroup tensor-core instructions (IGMMA) in K1's stage_kernel; it
+    must have some: its products run on the int8 tensor cores."""
+    body = next(f for name, f in funcs.items() if "stage_kernel" in name)
+    insts, _ = _sass_loops(body.splitlines())
+    n = sum(1 for _, t in insts if "GMMA" in _opcode(t))
+    if n == 0:
+        raise AssertionError("stage_kernel has no wgmma instruction")
+    return n
 
 
 def kernel_checks(ctx, gen):
@@ -204,13 +267,13 @@ def kernel_checks(ctx, gen):
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
         lambda: wt._fwd.kernel(d_w), lambda: wt._fwd.plain(d_w),
-        [wt._fwd.table, d_w], {"products": stage_products(wt._fwd, d_w)}))
+        [wt._fwd.table, d_w], **stage_work(wt._fwd, d_w)))
     d_x = random_residues(p.moduli, (W, n), gen)
     rows.append(check_kernel(
         "stage (K1, X-NTT)", "stage", "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
         lambda: xntt._fwd.kernel(d_x), lambda: xntt._fwd.plain(d_x),
-        [xntt._fwd.table, d_x], {"products": stage_products(xntt._fwd, d_x)}))
+        [xntt._fwd.table, d_x], **stage_work(xntt._fwd, d_x)))
     a_rows = random_residues(p.moduli, (W * n, n), gen)
     s_mont = random_residues(p.moduli, (W, n), gen)
     k2 = xntt._mul_s
@@ -501,14 +564,14 @@ def gl2_path():
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
         lambda: fwd_w.kernel(d_w), lambda: fwd_w.plain(d_w),
-        [fwd_w.table, d_w], {"products": stage_products(fwd_w, d_w)}))
+        [fwd_w.table, d_w], **stage_work(fwd_w, d_w)))
     d_x = d_w.reshape(len(rc.qp_moduli), W * m, m)
     rows.append(check_kernel(
         f"stage (K1, QP X-NTT, {m} points)", "stage",
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
         lambda: fwd_x.kernel(d_x), lambda: fwd_x.plain(d_x),
-        [fwd_x.table, d_x], {"products": stage_products(fwd_x, d_x)}))
+        [fwd_x.table, d_x], **stage_work(fwd_x, d_x)))
     del d_w, d_x
     # K4 on the encode's inverse tables (Encoder.idft2_exact and
     # WTransform.dft_inverse_pair) at [W, n, n]
@@ -740,8 +803,7 @@ def leveled_path():
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:460",
         lambda: fwd_x.kernel(d, tw), lambda: fwd_x.plain(d, tw),
-        [fwd_x.table, d, tw],
-        {"products": stage_products(fwd_x, d) + d.numel()})]
+        [fwd_x.table, d, tw], **stage_work(fwd_x, d, twiddle=True))]
     del d, tw
     d = random_residues(qp, (W, n * n), gen)
     rows.append(check_kernel(
@@ -750,7 +812,11 @@ def leveled_path():
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
         lambda: fwd_w.kernel(d), lambda: fwd_w.plain(d), [fwd_w.table, d],
-        {"products": stage_products(fwd_w, d)}))
+        **stage_work(fwd_w, d)))
+    split_ms = cuda_ms(lambda: fwd_w.split_digits(d), 5)
+    log(f"[kernel] {rows[-1]['name']}: its split pass (launch key "
+        f"stage_split) alone {split_ms:.3f} ms of the row's "
+        f"{rows[-1]['ms']:.3f}")
     del d, fwd_x, fwd_w
     # batched_left runs on no path (launch key stage_tw_batched): held at
     # the four-step stage shape, 256 x 256 tables and a batch of 16 a limb,
@@ -760,16 +826,16 @@ def leveled_path():
                "cuda")
     d = random_residues(p.moduli, (16, 256, 256), gen)
     tw = random_residues(p.moduli, (256, 256), gen)
-    check_kernel(
+    off_path = check_kernel(
         f"stage_tw (K10a, batched_left x twiddle, [{L}, 16, 256, 256], "
         f"on no path)", "stage_tw_batched", "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:460",
         lambda: bl.kernel(d, tw), lambda: bl.plain(d, tw), [bl.table, d, tw],
-        {"products": stage_products(bl, d) + d.numel()})
+        **stage_work(bl, d, twiddle=True))
     del d, tw, bl
     torch.cuda.empty_cache()
 
-    summary = {"ref_relin_noise": relin_noise,
+    summary = {"ref_relin_noise": relin_noise, "ref_ks_k1_split_ms": split_ms,
                "ref_multiply_relinearize_ms": mr_ms,
                "ref_leveled_oracle": oracle, "ref_pair_err": pair_err,
                "ref_leveled_max_memory_allocated": peak,
@@ -777,7 +843,7 @@ def leveled_path():
                "ks_phases_ref": ks}
     summary.update({f"ref_leveled_{k}_ms": v for k, v in steps.items()})
     summary.update({f"ref_leveled_{k}_steady_ms": v for k, v in steady.items()})
-    return rows, summary, launches
+    return rows, summary, launches, off_path
 
 
 def probe_path():
@@ -890,7 +956,9 @@ def probe_path():
 def finalize_rows(rows, imads: float) -> None:
     """bound_ms (the larger of bytes over the memory rate and each type of
     operations over its peak; a 64-bit product is `imads` IMADs) and
-    bound_by, for every row."""
+    bound_by, for every row; where a row has an earlier 64-bit route (K1,
+    K10a), a [bound] line logs its byte and int8 bounds apart and that
+    route's IMAD bound."""
     peaks = {"int8": INT8_OPS_PER_S, "int32": INT32_OPS_PER_S}
     for row in rows:
         t_bytes = row.pop("bytes") / HBM_BYTES_PER_S
@@ -900,6 +968,12 @@ def finalize_rows(rows, imads: float) -> None:
         row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         row.setdefault("library_ms", None)
+        if "imad_products" in row:
+            t_imad = row.pop("imad_products") * imads / IMAD_PER_S
+            log(f"[bound] {row['name']}: {row['ms']:.3f} ms; bytes "
+                f"{1e3 * t_bytes:.3f} ms, int8 "
+                f"{1e3 * work['int8'] / INT8_OPS_PER_S:.3f} ms; earlier IMAD "
+                f"route's bound {1e3 * t_imad:.3f} ms")
 
 
 def main() -> int:
@@ -921,9 +995,12 @@ def main() -> int:
     t0 = time.perf_counter()
     be.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
-    imads = imads_per_product()
-    log(f"[sass] K1 inner loop: {imads:.2f} 32-bit multiply-adds per 64 x 64 "
-        f"-> 128-bit product (cuobjdump -sass)")
+    funcs = sass_functions()
+    imads, n_imad, n_prod = imads_per_product(funcs)
+    log(f"[sass] K6 inner loop (cgemm_kernel): {n_imad} 32-bit multiply-adds "
+        f"for {n_prod} 64 x 64 -> 128-bit products, {imads:.2f} a product; "
+        f"K1 stage_kernel: {stage_tensor_core_ops(funcs)} IGMMA (u8 wgmma) "
+        f"instructions (cuobjdump -sass)")
     t_path = time.perf_counter()
 
     p = get_params("ref")
@@ -1019,7 +1096,7 @@ def main() -> int:
     # -- path 2: the bench NTT (K5) ----------------------------------------
     summary = {"ref_roundtrip_ms": rt_ms, "ref_roundtrip_err": err_rt,
                "ref_step_api_err": err_steps, "max_memory_allocated": peak,
-               "k1_imads_per_product": imads}
+               "imads_per_product": imads}
     t_path = time.perf_counter()
     for bits in (35, 28):
         ntt_rows, ntt_summary = ntt_path(bits, gen)
@@ -1046,7 +1123,7 @@ def main() -> int:
 
     # -- path 5: key switching and the leveled chain at ref (K10a) ----------
     t_path = time.perf_counter()
-    ks_rows, ks_summary, ks_launches = leveled_path()
+    ks_rows, ks_summary, ks_launches, off_path = leveled_path()
     for row in ks_rows:
         row["launches"] = ks_launches.get(row.pop("key"), 0)
     rows += ks_rows
@@ -1063,10 +1140,13 @@ def main() -> int:
     for row in rows:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its path")
-    finalize_rows(rows, imads)
     log(f"[bound] IMAD peak {IMAD_PER_S:.4e} /s (64 a clock on each of 132 "
         f"SMs at 1.98 GHz), {imads:.2f} IMADs per 64-bit product; K11 addmul "
         f"measured {probe_summary['k11_addmul_steps_per_s']:.4e} steps/s")
+    finalize_rows(rows + [off_path], imads)
+    off_path.pop("key")
+    log(f"[bound] {off_path['name']} (logged, not a path row): "
+        + json.dumps(off_path))
     walls["total"] = time.perf_counter() - t_run
     summary["wall_s"] = walls
     log("[wall] " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))

@@ -5,16 +5,21 @@ PallasStage with its twiddle, SlicedNttMulNtt, SlicedInvCompose).  Each
 class owns its tables as int64 tensors on one device; calling it on a CUDA
 tensor launches the kernel in ``csrc/`` and on a CPU tensor runs the plain
 PyTorch version, ``plain``, which is the same function (the CPU tests and
-chip_smoke.py hold the two equal).  All limbs run in one launch: the
-TPU's limb runs, int8 digit planes and u32 lo/hi planes do not exist here.
+chip_smoke.py hold the two equal).  All limbs run in one launch.  K1 and
+K10a run on the int8 tensor cores over u8 digit planes of the table
+(``slice_tables``, built on the device at a Stage's first CUDA call); K2
+and K3 on 64-bit integer products.  The TPU's limb runs and u32 lo/hi
+planes do not exist here.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _backend as be
 from .modmath import kernel_consts, moduli_col, mul_mod, to_signed64
@@ -29,16 +34,66 @@ def _as_i64(table_u64: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(arr.view(np.int64).copy()).to(device)
 
 
-def _bits(moduli: Sequence[int], k: int) -> int:
+def _bits(moduli: Sequence[int], k: int, k_max: int = 1 << 16) -> int:
     """Bit width of the moduli, checked against the kernels' exactness
-    bounds: q < 2^56 and a contraction of k <= 2^16 terms, so that a
-    128-bit sum of products < 2^112 cannot overflow."""
+    bounds: q < 2^56 and a contraction of k <= k_max terms (K2 and K3:
+    2^16, so that a 128-bit sum of products < 2^112 cannot overflow)."""
     bits = max(int(q).bit_length() for q in moduli)
     if bits >= 56:
         raise ValueError("moduli must be < 2^56")
-    if k > 1 << 16:
-        raise ValueError(f"contraction of {k} terms exceeds 2^16")
+    if k > k_max:
+        raise ValueError(f"contraction of {k} terms exceeds {k_max}")
     return bits
+
+
+def digit_count(q: int) -> int:
+    """u8 digits of a residue mod q: ceil(bits(q) / 8), at most 7."""
+    return -(-int(q).bit_length() // 8)
+
+
+def plane_layout(k: int, moduli: Sequence[int],
+                 side: str) -> Tuple[int, int, int, int]:
+    """(Kp, KBs, table rows a block, digit rows a flush) of K1's digit
+    planes for a contraction of k terms, as csrc/stage.cu lays them out
+    (mf_stage_layout).  Side 'right' reads the int64 data as bytes, 8 digit
+    slots a term at index 8 x + c; the left sides hold d_l planes at index
+    c Kp + x.  KBs is the byte length of a plane row."""
+    layout = (ctypes.c_int * 4)()
+    be.library().mf_stage_layout(k, max(map(digit_count, moduli)),
+                                 int(side != "right"), layout)
+    return tuple(layout)
+
+
+def slice_tables(table: torch.Tensor, moduli: Sequence[int], side: str,
+                 kp: int, kbs: int, tile_w: int) -> torch.Tensor:
+    """K1's table planes, u8 [L, ceil(W / tile_w), Dmax, tile_w, kbs], on
+    the table's device: plane j of table row w, contraction index of (c, x)
+    (8 x + c on side 'right', c kp + x on the left sides), holds byte j of
+    T^(c)[w, x] = T[w, x] 2^(8 c) 2^64 mod q (the method of the JAX
+    _slice_tables with 8-bit unsigned digits; the factor 2^64 lets the
+    kernel reduce each output with one Montgomery REDC).  c runs over the
+    data's digit slots: 8 for side 'right', d_l for the left sides; every
+    other byte is zero."""
+    L, W, K = table.shape
+    ds = [digit_count(q) for q in moduli]
+    dmax, wt = max(ds), -(-W // tile_w)
+    dev = table.device
+    q = moduli_col(moduli, 2, dev)
+    planes = torch.zeros((L, wt * tile_w, dmax, kbs), dtype=torch.uint8,
+                         device=dev)
+    for c in range(8 if side == "right" else dmax):
+        tc = mul_mod(table, moduli_col(
+            [pow(2, 8 * c + 64, int(m)) for m in moduli], 2, dev), q)
+        if side != "right":
+            live = torch.tensor([c < d for d in ds], device=dev)
+            tc = torch.where(live.reshape(L, 1, 1), tc, 0)
+        for j in range(dmax):
+            byte = ((tc >> (8 * j)) & 255).to(torch.uint8)
+            if side == "right":
+                planes[:, :W, j, c:8 * K:8] = byte
+            else:
+                planes[:, :W, j, c * kp:c * kp + K] = byte
+    return planes.reshape(L, wt, tile_w, dmax, kbs).transpose(2, 3).contiguous()
 
 
 class Stage:
@@ -60,6 +115,10 @@ class Stage:
     "stage_tw_batched" for 'batched_left', which no path runs).  With a key or
     a ciphertext in storage form as the twiddle, this is the X-NTT fused
     with the pointwise ring product of the key switch.
+
+    On the card the products are u8 digit-plane GEMMs on the int8 tensor
+    cores (csrc/stage.cu); the left sides first split the data into
+    transposed digit planes (launch key "stage_split").
     """
 
     def __init__(self, tables_u64: np.ndarray, moduli: Sequence[int],
@@ -69,12 +128,15 @@ class Stage:
                              f"not {side!r}")
         self.side = side
         self.moduli = tuple(int(q) for q in moduli)
-        self.bits = _bits(self.moduli, tables_u64.shape[-1])
+        # the kernel flushes its s32 sums, so any contraction runs; the
+        # plain version's float64 digit sums are exact below 2^19 terms
+        self.bits = _bits(self.moduli, tables_u64.shape[-1], (1 << 19) - 1)
         self.table = _as_i64(tables_u64, device)
         self.consts = kernel_consts(self.moduli, device)
         self.q = moduli_col(self.moduli, 2, device)
         self.r_inv = moduli_col(
             [pow(1 << 64, -1, q) for q in self.moduli], 2, device)
+        self._layout = self._planes = None   # at the first CUDA call
 
     def __call__(self, data: torch.Tensor,
                  twiddle_mont: torch.Tensor | None = None) -> torch.Tensor:
@@ -119,33 +181,23 @@ class Stage:
     def kernel(self, data: torch.Tensor,
                twiddle_mont: torch.Tensor | None = None) -> torch.Tensor:
         L, W, K = self.table.shape
-        batch, sAb, sBb = 1, 0, 0
+        batch = 1
         if self.side == "left":
             M = data.shape[2] if data.dim() == 3 else -1
             be.check(data, "data", I64, (L, K, M))
             out = torch.empty((L, W, M), dtype=I64, device=data.device)
-            rows, cols = W, M
-            a_strides = (W * K, K, 1)      # A = T[l]  [W, K]
-            b_strides = (K * M, M, 1)      # B = D[l]  [K, M]
-            a, b = self.table, data
+            rows = M
         elif self.side == "batched_left":
             batch, M = (data.shape[1], data.shape[3]) if data.dim() == 4 \
                 else (-1, -1)
             be.check(data, "data", I64, (L, batch, K, M))
             out = torch.empty((L, batch, W, M), dtype=I64, device=data.device)
-            rows, cols = W, M
-            a_strides = (W * K, K, 1)      # A = T[l], shared by the batch
-            b_strides = (batch * K * M, M, 1)
-            sBb = K * M                    # B = D[l, b]  [K, M]
-            a, b = self.table, data
+            rows = M
         else:
             R = data.shape[1] if data.dim() == 3 else -1
             be.check(data, "data", I64, (L, R, K))
             out = torch.empty((L, R, W), dtype=I64, device=data.device)
-            rows, cols = R, W
-            a_strides = (R * K, K, 1)      # A = D[l]  [R, K]
-            b_strides = (W * K, 1, K)      # B = T[l]^T  [K, W]
-            a, b = data, self.table
+            rows = R
         if twiddle_mont is None:
             key, tw, tw_rows = "stage", None, 1
         else:
@@ -153,10 +205,48 @@ class Stage:
             tw = twiddle_mont
             tw_rows = self._check_twiddle(tw, out.shape)
             be.check(tw, "twiddle_mont", I64, tuple(tw.shape))
-        be.launch(key, "mf_stage", data.device, a, b, out, self.consts, tw,
-                  L, batch, rows, cols, K, tw_rows, a_strides[0], sAb,
-                  *a_strides[1:], b_strides[0], sBb, *b_strides[1:])
+        kp, kbs = self._device_layout()
+        left = self.side != "right"
+        if left:    # the data's digit planes, transposed to K-major rows
+            xs = self.split_digits(data)
+            s_z, s_row = rows * kbs, kbs
+        else:       # the int64 rows read as bytes: 16-byte aligned rows
+            if kp != K:
+                data = F.pad(data, (0, kp - K))
+            if data.data_ptr() % 16:
+                data = data.clone()
+            xs, s_z, s_row = data, rows * 8 * kp, 8 * kp
+        be.launch(key, "mf_stage", data.device, xs, self._planes, out,
+                  self.consts, tw, L, batch, rows, W, kp, int(left),
+                  tw_rows, s_z, s_row, kbs, self._planes.shape[2])
         return out
+
+    def _device_layout(self) -> Tuple[int, int]:
+        """(Kp, KBs), building the table planes at the first CUDA call."""
+        if self._planes is None:
+            self._layout = plane_layout(self.table.shape[2], self.moduli,
+                                        self.side)
+            self._planes = slice_tables(self.table, self.moduli, self.side,
+                                        *self._layout[:3])
+        return self._layout[:2]
+
+    def split_digits(self, data: torch.Tensor) -> torch.Tensor:
+        """The left sides' split pass alone (launch key "stage_split"): the
+        CUDA data [L, K, M] or [L, B, K, M] as K-major u8 digit rows
+        [L B, M, KBs], d_l planes of Kp bytes each."""
+        if self.side == "right":
+            raise ValueError("side 'right' reads its data as it stands")
+        L, _, K = self.table.shape
+        rows = data.shape[-1]
+        batch = data.shape[1] if self.side == "batched_left" else 1
+        be.check(data, "data", I64, (L, K, rows) if self.side == "left"
+                 else (L, batch, K, rows))
+        kp, kbs = self._device_layout()
+        z = L * batch
+        xs = torch.empty((z, rows, kbs), dtype=torch.uint8, device=data.device)
+        be.launch("stage_split", "mf_stage_split", data.device, data, xs,
+                  self.consts, z, batch, K, rows, kp, kbs)
+        return xs
 
 
 class NttMulNtt:

@@ -33,7 +33,9 @@ from matrix_fhe_tpu_torch.ops import ddfloat as tdd
 from matrix_fhe_tpu_torch.ops import fpmatmul as tfp
 from matrix_fhe_tpu_torch.ops import modmath as tmm
 from matrix_fhe_tpu_torch.ops import probes
-from matrix_fhe_tpu_torch.ops.cuda_ntt import InvCompose, NttMulNtt, Stage
+from matrix_fhe_tpu_torch.ops.cuda_ntt import (InvCompose, NttMulNtt, Stage,
+                                               digit_count, plane_layout,
+                                               slice_tables)
 from matrix_fhe_tpu_torch.ops.wcrt import scaled_inverse_tables
 
 P = get_params("tiny")
@@ -101,6 +103,136 @@ def test_stage_wide_55bit_modulus(side):
     want = jax_join(pn.SlicedStage(table, (q,), side=side)(*jax_split(data)))
     got = Stage(table, (q,), side, "cpu")(i64(data))
     np.testing.assert_array_equal(u64(got), want)
+
+
+# -- K1's u8 digit-plane method, transcribed from csrc/stage.cu ----------------
+
+# 45 and 35 bits (the ref chain), 55 and 40 (the ref P basis): 6, 5, 7, 5
+# digits in one Stage
+MIXED = (get_params("ref").moduli[0], get_params("ref").moduli[1],
+         REF_P_MODULI[0], REF_P_MODULI[1])
+# digit rows an s32 sum of u8 products holds exactly, in whole 128-byte
+# tiles: 32,768 255^2 < 2^31 (csrc/stage.cu flushes at this interval)
+FLUSH_ROWS = 32768
+
+
+def _split_digits(data, moduli, batch, kp, kbs):
+    """stage_split_kernel: x [Z, K, M] -> xs[z, m, c Kp + k] = byte c of
+    x[z, k, m] for c < d_l (zero elsewhere; the kernel leaves the bytes it
+    never reads unwritten)."""
+    Z, K, M = data.shape
+    b = data.contiguous().view(torch.uint8).reshape(Z, K, M, 8)
+    xs = torch.zeros((Z, M, kbs), dtype=torch.uint8)
+    for z in range(Z):
+        for c in range(digit_count(moduli[z // batch])):
+            xs[z, :, c * kp:c * kp + K] = b[z, :, :, c].T
+    return xs
+
+
+def _digit_plane_stage(st, data, flush_rows=FLUSH_ROWS, tile_w=16):
+    """stage_kernel without its twiddle, in int64 on the CPU: the same table
+    planes (slice_tables) and data digit rows, one u8 GEMM a table plane j
+    over contraction chunks of at most `flush_rows` digit rows (each s32
+    sum checked below 2^31), sum_j diag_j 2^(8 j) 2^-64 mod q a chunk (the
+    planes carry 2^64 for the kernel's REDC), and the chunks summed mod
+    q.  The planes are packed tight (Kp = K, tiles of `tile_w` table rows);
+    the kernel's own layout (plane_layout) pads them with zero bytes."""
+    L, W, K = st.table.shape
+    left = st.side != "right"
+    kp = K
+    kbs = kp * (max(map(digit_count, st.moduli)) if left else 8)
+    planes = slice_tables(st.table, st.moduli, st.side, kp, kbs, tile_w)
+    if left:
+        batch = data.shape[1] if st.side == "batched_left" else 1
+        xs = _split_digits(data.reshape(-1, K, data.shape[-1]), st.moduli,
+                           batch, kp, kbs)
+    else:
+        batch = 1
+        xs = data.contiguous().view(torch.uint8)
+    outs, peak = [], 0
+    for z in range(xs.shape[0]):
+        l = z // batch
+        q, d = st.moduli[l], digit_count(st.moduli[l])
+        kb = d * kp if left else 8 * kp
+        a = xs[z, :, :kb].to(torch.int64)
+        total = torch.zeros((a.shape[0], planes.shape[1] * tile_w),
+                            dtype=torch.int64)
+        for s in range(0, kb, flush_rows):
+            e = min(kb, s + flush_rows)
+            acc = torch.zeros_like(total)
+            for j in reversed(range(d)):
+                bj = planes[l, :, j, :, s:e].reshape(-1, e - s).to(torch.int64)
+                diag = a[:, s:e] @ bj.T
+                peak = max(peak, int(diag.max()))
+                acc = (tmm.shl_mod(acc, 8, q) + diag) % q
+            acc = tmm.mul_mod(acc, torch.tensor(pow(1 << 64, -1, q)),
+                              torch.tensor(q))
+            total = (total + acc) % q
+        outs.append(total[:, :W])
+    assert peak < 1 << 31, "an s32 plane sum would overflow"
+    out = torch.stack(outs)
+    if left:
+        return out.transpose(1, 2).reshape(data.shape[:-2] + (W,
+                                                            data.shape[-1]))
+    return out
+
+
+def _stage_case(side, k, fill, seed, moduli=MIXED, w=40, rows=24, batch=3):
+    """A Stage of `side` over `moduli` with a [w, k] table, and its data
+    (random residues, or every entry q - 1 with fill='max')."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):
+        if fill == "max":
+            return np.stack([np.full(shape, q - 1, dtype=np.uint64)
+                             for q in moduli])
+        return residues(rng, moduli, shape)
+
+    st = Stage(draw((w, k)), moduli, side, "cpu")
+    shape = {"left": (k, rows), "right": (rows, k),
+             "batched_left": (batch, k, rows)}[side]
+    return st, i64(draw(shape))
+
+
+@pytest.mark.parametrize("fill", ["random", "max"])
+@pytest.mark.parametrize("k", [64, 128, 512])
+@pytest.mark.parametrize("side", ["left", "right", "batched_left"])
+def test_digit_planes_match_plain(side, k, fill):
+    """K1's method (u8 table planes pre-reduced per data digit, s32 plane
+    GEMMs, one fold an output) equals Stage.plain, and so SlicedStage, on
+    35-, 40-, 45- and 55-bit limbs in one Stage; with every residue and
+    table entry q - 1 the s32 sums stay below 2^31 at the largest K."""
+    st, data = _stage_case(side, k, fill, seed=30 + k)
+    assert torch.equal(_digit_plane_stage(st, data), st.plain(data))
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_digit_planes_flush_long_contractions(side):
+    """A contraction past the s32 bound (33,025 digit rows) is summed in
+    chunks of at most FLUSH_ROWS, each reduced, then added mod q: at K = 4800
+    and the 55-bit prime's 7 digits the left side has 33,600 digit rows,
+    the right side (8 slots) 38,400.  With every entry q - 1, and again in
+    chunks of 256 rows on mixed widths, all agree with Stage.plain."""
+    st, data = _stage_case(side, 4800, "max", seed=40,
+                           moduli=REF_P_MODULI[:1], w=8, rows=4)
+    assert 4800 * (7 if side == "left" else 8) > FLUSH_ROWS
+    assert torch.equal(_digit_plane_stage(st, data), st.plain(data))
+    st, data = _stage_case(side, 64, "random", seed=41)
+    assert torch.equal(_digit_plane_stage(st, data, flush_rows=256),
+                       st.plain(data))
+
+
+def test_stage_takes_contractions_past_2_16():
+    """The kernel flushes its s32 sums, so Stage is bounded only by its
+    plain version (float64 digit sums, K < 2^19): SlicedStage's own bound
+    (S < q 2^28) lets a 35-bit limb take K up to ~2^17, and so does Stage.
+    K = 70,000 on one 35-bit limb: 350,080 digit rows, 11 flushes."""
+    q35 = get_params("ref").moduli[1:2]
+    st, data = _stage_case("left", 70000, "max", seed=46, moduli=q35, w=2,
+                           rows=2)
+    assert torch.equal(_digit_plane_stage(st, data), st.plain(data))
+    with pytest.raises(ValueError, match="exceeds"):
+        Stage(np.zeros((1, 1, 1 << 19), dtype=np.uint64), q35, "left", "cpu")
 
 
 # -- K2 -----------------------------------------------------------------------
@@ -411,22 +543,67 @@ def _launched(name, fn):
     return out
 
 
+def _launched_stage(key, st, fn):
+    """K1 launched once under `key`, and its split pass once on the left
+    sides."""
+    split = _backend.LAUNCHES["stage_split"]
+    out = _launched(key, fn)
+    assert _backend.LAUNCHES["stage_split"] == split + (st.side != "right")
+    return out
+
+
+# sides x K x fill on the mixed 35/40/45/55-bit limbs, 40 table rows and 200
+# data rows (neither a multiple of the block's 32 x 128); then contractions
+# past the s32 bound on the 55-bit prime
+STAGE_CASES = (["tiny", "small"]
+               + [f"{side}-K{k}-{fill}"
+                  for side in ("left", "right", "batched_left")
+                  for k in (64, 128, 256, 512) for fill in ("random", "max")]
+               + ["left-K4800-flush", "right-K4800-flush"])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("preset", ["tiny", "small"])
-def test_cuda_stage_matches_plain(cuda, preset):
-    p = get_params(preset)
-    t = build_tables(p)
-    rng = np.random.default_rng(12)
-    wide = REF_P_MODULI[:1]               # the 55-bit P prime (q < 2^56)
-    cases = (("left", t.w_fwd, p.moduli, (p.phi, p.n * p.n + 3)),
-             ("right", t.x_fwd_nega, p.moduli, (p.phi * 3, p.n)),
-             ("left", residues(rng, wide, (40, 40)), wide, (40, 70)),
-             ("right", residues(rng, wide, (40, 40)), wide, (70, 40)))
-    for side, table, moduli, shape in cases:
-        st = Stage(table, moduli, side, cuda)
-        x = i64(residues(rng, moduli, shape)).to(cuda)
-        got = _launched("stage", lambda: st(x))
-        assert torch.equal(got.cpu(), st.plain(x).cpu())
+@pytest.mark.parametrize("case", STAGE_CASES)
+def test_cuda_stage_matches_plain(cuda, case):
+    if case in ("tiny", "small"):
+        p = get_params(case)
+        t = build_tables(p)
+        rng = np.random.default_rng(12)
+        wide = REF_P_MODULI[:1]           # the 55-bit P prime (q < 2^56)
+        cases = (("left", t.w_fwd, p.moduli, (p.phi, p.n * p.n + 3)),
+                 ("right", t.x_fwd_nega, p.moduli, (p.phi * 3, p.n)),
+                 ("left", residues(rng, wide, (40, 40)), wide, (40, 70)),
+                 ("right", residues(rng, wide, (40, 40)), wide, (70, 40)))
+        for side, table, moduli, shape in cases:
+            st = Stage(table, moduli, side, cuda)
+            x = i64(residues(rng, moduli, shape)).to(cuda)
+            got = _launched_stage("stage", st, lambda: st(x))
+            assert torch.equal(got.cpu(), st.plain(x).cpu())
+        return
+    side, k, fill = case.split("-")
+    if fill == "flush":
+        st, data = _stage_case(side, int(k[1:]), "max", seed=42,
+                               moduli=REF_P_MODULI[:1], w=8, rows=4)
+    else:
+        st, data = _stage_case(side, int(k[1:]), fill, seed=43, rows=200)
+    st = Stage(u64(st.table), st.moduli, side, cuda)
+    x = data.to(cuda)
+    got = _launched_stage("stage", st, lambda: st(x))
+    assert torch.equal(got.cpu(), st.plain(x).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_cuda_stage_layout(cuda, side):
+    """The digit-plane layout csrc/stage.cu reports (mf_stage_layout): the
+    plane rows cover every limb's contraction in whole 128-byte tiles, a
+    flush keeps the s32 sums exact, and the K = 4800 cases above flush."""
+    slots = 8 if side == "right" else 7
+    for k in (64, 65, 512, 4800):
+        kp, kbs, tile_w, flush = plane_layout(k, MIXED, side)
+        assert k <= kp and slots * kp <= kbs and kbs % 128 == 0
+        assert flush % 128 == 0
+        assert flush * 255 ** 2 < 1 << 31 and flush < 7 * 4800
 
 
 @pytest.mark.cuda
@@ -562,24 +739,42 @@ def test_cuda_gemm2x2_matches_plain(cuda, preset):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("side", ["right", "batched_left"])
-def test_cuda_stage_twiddle_matches_plain(cuda, side):
-    """K10a's twiddle form on the card, and at the 55-bit P prime with a
-    one-row twiddle and rows that are not a multiple of the tile."""
-    qs, table, data, tw = _twiddle_case(side, 26)
-    st = Stage(table, qs, side, cuda)
-    d, t = i64(data).to(cuda), i64(tw).to(cuda)
+@pytest.mark.parametrize("case", ["right", "batched_left"]
+                         + [f"{side}-K{k}-{fill}"
+                            for side in ("right", "batched_left")
+                            for k in (64, 128, 256, 512)
+                            for fill in ("random", "max")])
+def test_cuda_stage_twiddle_matches_plain(cuda, case):
+    """K10a's twiddle form on the card: the PallasStage case, the 55-bit P
+    prime with a one-row twiddle and rows that are not a multiple of the
+    tile, and the mixed 35/40/45/55-bit limbs at K = 64..512 with 200 rows
+    (twiddle rows 40 on side 'right')."""
+    side = case.split("-")[0]
     key = "stage_tw" if side == "right" else "stage_tw_batched"
-    got = _launched(key, lambda: st(d, twiddle_mont=t))
-    assert torch.equal(got.cpu(), st.plain(d, twiddle_mont=t).cpu())
-    if side == "right":
-        rng = np.random.default_rng(27)
-        wide = REF_P_MODULI[:1]
-        st = Stage(residues(rng, wide, (64, 64)), wide, side, cuda)
-        d = i64(residues(rng, wide, (70, 64))).to(cuda)
-        t = i64(residues(rng, wide, (1, 64))).to(cuda)
-        got = _launched("stage_tw", lambda: st(d, twiddle_mont=t))
+    if case == side:
+        qs, table, data, tw = _twiddle_case(side, 26)
+        st = Stage(table, qs, side, cuda)
+        d, t = i64(data).to(cuda), i64(tw).to(cuda)
+        got = _launched_stage(key, st, lambda: st(d, twiddle_mont=t))
         assert torch.equal(got.cpu(), st.plain(d, twiddle_mont=t).cpu())
+        if side == "right":
+            rng = np.random.default_rng(27)
+            wide = REF_P_MODULI[:1]
+            st = Stage(residues(rng, wide, (64, 64)), wide, side, cuda)
+            d = i64(residues(rng, wide, (70, 64))).to(cuda)
+            t = i64(residues(rng, wide, (1, 64))).to(cuda)
+            got = _launched_stage(key, st, lambda: st(d, twiddle_mont=t))
+            assert torch.equal(got.cpu(), st.plain(d, twiddle_mont=t).cpu())
+        return
+    _, k, fill = case.split("-")
+    st, data = _stage_case(side, int(k[1:]), fill, seed=44, rows=200)
+    st = Stage(u64(st.table), st.moduli, side, cuda)
+    rng = np.random.default_rng(45)
+    tw_shape = (40, 40) if side == "right" else (40, 200)
+    t = i64(residues(rng, MIXED, tw_shape)).to(cuda)
+    d = data.to(cuda)
+    got = _launched_stage(key, st, lambda: st(d, twiddle_mont=t))
+    assert torch.equal(got.cpu(), st.plain(d, twiddle_mont=t).cpu())
 
 
 @pytest.mark.cuda
