@@ -12,8 +12,10 @@ and read just after:
      roundtrip, and encode -> encrypt_pair -> decrypt_and_decode), kernels
      K1-K4, max error < 1e-4;
   2. the bench NTT, N = 2^16, L = 16, B = 128 at 35- and 28-bit primes
-     (FourStepNTT forward / inverse, kernel K5): NTT/s over chained
-     forwards, and inverse(forward(x)) == x on the whole batch;
+     (FourStepNTT forward / inverse, kernel K5 on 64-bit words at 35 bits,
+     32-bit words at 28): NTT/s over chained forwards, and
+     inverse(forward(x)) == x on the whole batch; at 28 bits both word
+     routes are timed in turns;
   3. the homomorphic matrix product at ref (ring "gl", HEMatmul, kernel K6
      with K1, K2 and K4), max |C - Y^H X| < 1e-4 as examples/matmul.py;
   4. the gl2 ciphertext GEMM at ref as examples/matmul_gl2.py (Gl2Context,
@@ -40,10 +42,12 @@ shapes its path gives it, and both are timed, with the least time the card
 could take for the same work (bytes at 3.35 TB/s; K1 and K10a's u8 digit
 products at the int8 tensor-core rate of 1,979 TOP/s; the 64 x 64-bit
 products of K2-K7 as 32-bit multiply-adds, counted from the SASS of K6's
-inner loop, at the card's IMAD rate of 64 a clock on each SM) and, where
-one PyTorch call computes the same function, that call's time.  For each
-K1 and K10a row a [bound] line logs the byte and int8 bounds apart and the
-IMAD bound of the earlier 64-bit route.
+inner loop, at the card's IMAD rate of 64 a clock on each SM; K5's Shoup
+products at the IMADs a product of its register kernel's SASS, per word
+width, its index and address IMADs left out) and, where one PyTorch call computes the same function, that call's
+time (K11's copy: Tensor.copy_ on the same buffers, in turns).  For each
+K1, K10a and K5 row a [bound] line logs the byte and operation bounds apart
+and the IMAD bound of the earlier 64-bit route.
 Fails (nonzero exit, no result line) without a CUDA device, on a build or
 launch error, on any disagreement, or when a path's check fails.
 
@@ -116,8 +120,9 @@ def check_kernel(name, key, source, replaces, kernel_fn, plain_fn, inputs,
     `key` names its launch counter, `inputs` are the tensors the function
     reads (with the outputs, they make the bytes of the bound) and `work`
     its operations by type ("products": 64 x 64 -> 128-bit products,
-    "int32", "int8"); `imad_products`, where given, the products of an
-    earlier 64-bit route, whose IMAD bound the row keeps beside its own."""
+    "imad": IMAD-class instructions, "int32", "int8"); `imad_products`,
+    where given, the products of an earlier 64-bit route, whose IMAD bound
+    the row keeps beside its own."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -200,6 +205,75 @@ def _opcode(text):
     return text.split()[1] if text.startswith("@") else text.split()[0]
 
 
+def _is_imad(text):
+    """An IMAD-class instruction (IMAD, IMAD.WIDE, IMAD.HI, IMAD.X; not the
+    IMAD.MOV / SHL / IADD forms, which move, shift or add)."""
+    op = _opcode(text)
+    return op.startswith("IMAD") and not any(
+        k in op for k in ("MOV", "SHL", "IADD"))
+
+
+# K5's register kernel four_step_reg<W, R, COL, PRE, POST> (csrc/
+# four_step_ntt.cu) as cuobjdump names it: W is j (uint32_t) or m / y
+# (uint64_t)
+K5_REG_RE = re.compile(r"four_step_regI([jmy])Li(\d+)ELb([01])ELb([01])ELb([01])E")
+
+
+def dif_products(r: int) -> int:
+    """Shoup products of K5's R-point DIF DFT (the j = 0 butterflies of
+    each stage take none)."""
+    out, length = 0, r // 2
+    while length >= 1:
+        out += r // (2 * length) * (length - 1)
+        length //= 2
+    return out
+
+
+def _register_operands(text):
+    """True if an instruction's operands are registers only: no immediate
+    and no constant-bank operand, as in a Shoup product's multiplies (its
+    operands are residues, table pairs and the modulus, all loaded); the
+    index and address arithmetic multiplies by constants."""
+    ops = text.split(";")[0].split(None, 2 if text.startswith("@") else 1)
+    return not re.search(r"\b0x[0-9a-f]+\b|\bc\[", ops[-1])
+
+
+def k5_reg_products(r: int, wide: bool, pre: bool, post: bool) -> int:
+    """Shoup products a thread of K5's four_step_reg makes: two R-point DFTs
+    and the inner twiddles w_m^(j k1), k1 >= 1 (k1 = 0 too on 64-bit
+    words, by w_m^0 = 1, to come back below 2q), R for the pre-product,
+    and R at the store for the post-product, or on 64-bit words by w_m^0."""
+    return (2 * dif_products(r) + (r if wide else r - 1)
+            + r * pre + r * (post or wide))
+
+
+def k5_imads_per_product(funcs, r: int = 16) -> dict:
+    """IMAD-class instructions per Shoup product in K5's register kernel at
+    R = 16 (m = 256, the bench's split), per word width: over the pass
+    instantiations of that width, the IMADs of the straight-line body
+    (every loop is unrolled but the root-table copy, which is left out)
+    whose operands are registers only (`_register_operands`: the index and
+    address IMADs are left out), over the products the body makes a thread
+    (`k5_reg_products`).  Returns {32: IMADs a product, 64: ...}."""
+    tot = {32: [0, 0], 64: [0, 0]}
+    for name, body in funcs.items():
+        m = K5_REG_RE.search(name)
+        if not m or int(m.group(2)) != r:
+            continue
+        width = 32 if m.group(1) == "j" else 64
+        products = k5_reg_products(r, width == 64, m.group(4) == "1",
+                                   m.group(5) == "1")
+        insts, loops = _sass_loops(body.splitlines())
+        tot[width][0] += sum(
+            1 for a, t in insts if _is_imad(t) and _register_operands(t)
+            and not any(lo <= a <= hi for lo, hi in loops))
+        tot[width][1] += products
+    if any(p == 0 for _, p in tot.values()):
+        raise AssertionError(f"no four_step_reg instantiation at R = {r} "
+                             f"for a word width: {tot}")
+    return {w: i / p for w, (i, p) in tot.items()}
+
+
 def imads_per_product(funcs):
     """32-bit multiply-adds (IMAD, IMAD.WIDE, IMAD.HI, IMAD.X; not the
     IMAD.MOV / SHL / IADD forms) per 64 x 64 -> 128-bit product in the inner
@@ -212,11 +286,6 @@ def imads_per_product(funcs):
     (IMADs per product, IMADs, products)."""
     body = next(f for name, f in funcs.items() if "cgemm_kernel" in name)
     insts, loops = _sass_loops(body.splitlines())
-
-    def is_imad(text):
-        op = _opcode(text)
-        return op.startswith("IMAD") and not any(
-            k in op for k in ("MOV", "SHL", "IADD"))
 
     def lds_bytes(text):
         op = _opcode(text)
@@ -231,8 +300,8 @@ def imads_per_product(funcs):
         return sum(measure(t) for a, t in insts if lo <= a <= hi
                    and not any(x <= a <= y for x, y in inner))
 
-    lo, hi = max(loops, key=lambda r: count(*r, is_imad))
-    imads = count(lo, hi, is_imad)
+    lo, hi = max(loops, key=lambda r: count(*r, _is_imad))
+    imads = count(lo, hi, _is_imad)
     nbytes = count(lo, hi, lds_bytes)
     if nbytes == 0 or nbytes % 128:
         raise AssertionError(f"cgemm inner loop reads {nbytes} B of shared "
@@ -307,7 +376,7 @@ def kernel_checks(ctx, gen):
     return rows
 
 
-def ntt_path(bits: int, gen):
+def ntt_path(bits: int, gen, k5_imads: dict):
     """The bench NTT at one prime width: forward throughput from chained
     forwards, the bit-exact roundtrip fence, then K5 against its plain
     version (outside the counted run).  Returns (rows, summary)."""
@@ -326,7 +395,9 @@ def ntt_path(bits: int, gen):
     be.reset_launches()
     spec = ntt.forward(x)
     fwd_ms = cuda_ms(lambda: ntt.forward(spec), NTT_ITERS)
-    # chained, as bench.py measures
+    # chained, as bench.py measures: the first chain as it comes (the
+    # caching allocator finds its buffers during it), then a second one
+    cold_ms = cuda_ms(ntt.forward, NTT_ITERS, warmup=False, chain=x)
     chained_ms = cuda_ms(ntt.forward, NTT_ITERS, warmup=False, chain=x)
     inv_ms = cuda_ms(lambda: ntt.inverse(spec), NTT_ITERS)
     exact = torch.equal(ntt.inverse(spec), x)
@@ -334,6 +405,7 @@ def ntt_path(bits: int, gen):
     launches = dict(be.LAUNCHES)
     log(f"[ntt{bits}] forward {chained_ms:.3f} ms chained "
         f"({fwd_ms:.3f} ms repeated), {L * B / (chained_ms / 1e3):,.0f} NTT/s; "
+        f"first chain {cold_ms:.3f} ms, {L * B / (cold_ms / 1e3):,.0f} NTT/s; "
         f"inverse {inv_ms:.3f} ms; roundtrip exact: {exact}; "
         f"launches {launches}")
     if not exact:
@@ -341,31 +413,57 @@ def ntt_path(bits: int, gen):
     if spec.shape != x.shape or not bool((spec >= 0).all()):
         raise AssertionError("NTT spectrum has the wrong shape or values")
 
-    log(f"[ntt{bits}] K5 against its plain version at B={B}")
+    log(f"[ntt{bits}] K5 against its plain version at B={B}, "
+        f"{ntt.word_bits}-bit route")
     kt = ntt._kernel_tables
-    # two passes of radix-2 butterflies, N/2 log2 N Montgomery products,
-    # and two twiddle passes of N; a Montgomery product is two 64 x 64-bit
-    # products (the value's, and the reduction's low and high halves)
-    products = L * B * 2 * (N // 2 * (N.bit_length() - 1) + 2 * N)
-    tables = [t for k, t in kt.items() if k != "consts"]
-    rows = [check_kernel(
-        f"four_step_ntt (K5, forward, {bits}-bit)", "four_step_fwd",
-        "matrix_fhe_tpu_torch/csrc/four_step_ntt.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:1430",
-        lambda: ntt.forward_kernel(x), lambda: ntt.forward_plain(x),
-        [x] + tables, {"products": products}, reps=10),
-        check_kernel(
-        f"four_step_ntt (K5, inverse, {bits}-bit)", "four_step_inv",
-        "matrix_fhe_tpu_torch/csrc/four_step_ntt.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:1430",
-        lambda: ntt.inverse_kernel(spec), lambda: ntt.inverse_plain(spec),
-        [spec] + tables, {"products": products}, reps=10)]
+    # the function's modular products: N/2 log2 N butterflies and 2N
+    # element-wise products, at the route's IMADs a Shoup product; the
+    # earlier route's count (a Montgomery product is two 64 x 64-bit
+    # products) is logged with its bound
+    products = L * B * (N // 2 * (N.bit_length() - 1) + 2 * N)
+    work = {"imad": products * k5_imads[ntt.word_bits]}
+    rows = []
+    for label, key, kernel, plain, data, names in (
+            ("forward", "four_step_fwd", ntt.forward_kernel, ntt.forward_plain,
+             x, ("roots_f", "twist_f", "tw_f")),
+            ("inverse", "four_step_inv", ntt.inverse_kernel, ntt.inverse_plain,
+             spec, ("roots_i", "tw_i", "post_i"))):
+        rows.append(check_kernel(
+            f"four_step_ntt (K5, {label}, {bits}-bit, {ntt.word_bits}-bit "
+            f"words)", key, "matrix_fhe_tpu_torch/csrc/four_step_ntt.cu",
+            "matrix_fhe_tpu/ops/pallas_ntt.py:1430",
+            lambda kernel=kernel, data=data: kernel(data),
+            lambda plain=plain, data=data: plain(data),
+            [data] + [kt[k] for k in names], dict(work), reps=10,
+            imad_products=2 * products))
     for row in rows:
         row["launches"] = launches.get(row.pop("key"), 0)
+    route = {}
+    if ntt.word_bits == 32:
+        # the same plan on the 64-bit route, against the 32-bit one it
+        # takes: in turns, on the same inputs (outside the counted run)
+        wide = FourStepNTT(ntt.plan, "cuda", words=64)
+        if not (torch.equal(wide.forward_kernel(x), spec)
+                and torch.equal(wide.inverse_kernel(spec), x)):
+            raise AssertionError(f"{bits}-bit K5 on 64-bit words disagrees")
+        for _ in range(2):
+            for label, obj in (("32", ntt), ("64", wide)):
+                route.setdefault(f"fwd{label}", []).append(
+                    cuda_ms(lambda obj=obj: obj.forward_kernel(x), NTT_ITERS))
+                route.setdefault(f"inv{label}", []).append(
+                    cuda_ms(lambda obj=obj: obj.inverse_kernel(spec), NTT_ITERS))
+        route = {k: min(v) for k, v in route.items()}
+        log(f"[route] {bits}-bit K5 (best of 2, in turns): 32-bit words "
+            f"forward {route['fwd32']:.3f} ms, inverse {route['inv32']:.3f}; "
+            f"64-bit words forward {route['fwd64']:.3f}, inverse "
+            f"{route['inv64']:.3f}")
+        del wide
     summary = {f"ntt{bits}_per_sec": L * B / (chained_ms / 1e3),
+               f"ntt{bits}_first_chain_per_sec": L * B / (cold_ms / 1e3),
                f"ntt{bits}_plain_per_sec": L * B / (rows[0]["plain_ms"] / 1e3),
                f"ntt{bits}_forward_ms": chained_ms,
                f"ntt{bits}_inverse_ms": inv_ms}
+    summary.update({f"ntt{bits}_k5_{k}_ms": v for k, v in route.items()})
     return rows, summary
 
 
@@ -901,8 +999,19 @@ def probe_path():
                            warmup=False)
         lib = None
         if kind == "copy":
+            # the kernel and Tensor.copy_ on the same buffers, by the same
+            # timer, in turns; the medians of three
             dst = torch.empty_like(x)
-            lib = cuda_ms(lambda: dst.copy_(x), 30)
+            turns = [(cuda_ms(lambda: probes.u32_chain_kernel(
+                x, "copy", 0, out=dst), 30), cuda_ms(lambda: dst.copy_(x), 30))
+                for _ in range(3)]
+            ms = statistics.median(t[0] for t in turns)
+            lib = statistics.median(t[1] for t in turns)
+            log(f"[probe] K11 copy into one buffer, kernel / Tensor.copy_ ms "
+                f"in turns: {turns}; chained with fresh outputs "
+                f"(scripts.micro_vpu): "
+                f"{next(r['ms'] for r in vpu if r['kind'] == 'copy'):.3f}")
+            del dst
         ops = micro_vpu.OPS_PER_STEP[kind] * k * el
         rows.append({"name": f"micro_vpu (K11, {kind} k={k}, {list(shape)})",
                      "key": "micro_vpu", "route": "cuda",
@@ -955,25 +1064,26 @@ def probe_path():
 
 def finalize_rows(rows, imads: float) -> None:
     """bound_ms (the larger of bytes over the memory rate and each type of
-    operations over its peak; a 64-bit product is `imads` IMADs) and
-    bound_by, for every row; where a row has an earlier 64-bit route (K1,
-    K10a), a [bound] line logs its byte and int8 bounds apart and that
-    route's IMAD bound."""
-    peaks = {"int8": INT8_OPS_PER_S, "int32": INT32_OPS_PER_S}
+    operations over its peak; a 64-bit product is `imads` IMADs, "imad"
+    counts IMADs) and bound_by, for every row; where a row has an earlier
+    64-bit route (K1, K10a, K5), a [bound] line logs its byte and operation
+    bounds apart and that route's IMAD bound."""
+    peaks = {"int8": INT8_OPS_PER_S, "int32": INT32_OPS_PER_S,
+             "imad": IMAD_PER_S, "products": IMAD_PER_S / imads}
     for row in rows:
         t_bytes = row.pop("bytes") / HBM_BYTES_PER_S
         work = row.pop("work")
-        t_ops = max(v * imads / IMAD_PER_S if k == "products" else v / peaks[k]
-                    for k, v in work.items())
+        t_work = {k: v / peaks[k] for k, v in work.items()}
+        t_ops = max(t_work.values())
         row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         row.setdefault("library_ms", None)
         if "imad_products" in row:
             t_imad = row.pop("imad_products") * imads / IMAD_PER_S
             log(f"[bound] {row['name']}: {row['ms']:.3f} ms; bytes "
-                f"{1e3 * t_bytes:.3f} ms, int8 "
-                f"{1e3 * work['int8'] / INT8_OPS_PER_S:.3f} ms; earlier IMAD "
-                f"route's bound {1e3 * t_imad:.3f} ms")
+                f"{1e3 * t_bytes:.3f} ms, "
+                + ", ".join(f"{k} {1e3 * t:.3f} ms" for k, t in t_work.items())
+                + f"; earlier IMAD route's bound {1e3 * t_imad:.3f} ms")
 
 
 def main() -> int:
@@ -997,8 +1107,12 @@ def main() -> int:
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     funcs = sass_functions()
     imads, n_imad, n_prod = imads_per_product(funcs)
+    k5_imads = k5_imads_per_product(funcs)
     log(f"[sass] K6 inner loop (cgemm_kernel): {n_imad} 32-bit multiply-adds "
         f"for {n_prod} 64 x 64 -> 128-bit products, {imads:.2f} a product; "
+        f"K5 four_step_reg at R = 16: {k5_imads[64]:.2f} IMADs on registers "
+        f"a Shoup product on 64-bit words, {k5_imads[32]:.2f} on 32-bit "
+        f"words; "
         f"K1 stage_kernel: {stage_tensor_core_ops(funcs)} IGMMA (u8 wgmma) "
         f"instructions (cuobjdump -sass)")
     t_path = time.perf_counter()
@@ -1096,10 +1210,11 @@ def main() -> int:
     # -- path 2: the bench NTT (K5) ----------------------------------------
     summary = {"ref_roundtrip_ms": rt_ms, "ref_roundtrip_err": err_rt,
                "ref_step_api_err": err_steps, "max_memory_allocated": peak,
-               "imads_per_product": imads}
+               "imads_per_product": imads,
+               "k5_imads_per_product": k5_imads}
     t_path = time.perf_counter()
     for bits in (35, 28):
-        ntt_rows, ntt_summary = ntt_path(bits, gen)
+        ntt_rows, ntt_summary = ntt_path(bits, gen, k5_imads)
         rows += ntt_rows
         summary.update(ntt_summary)
         torch.cuda.empty_cache()

@@ -14,8 +14,14 @@
 // (each element read and written once, 8 bytes); the chains by the
 // integer pipe (addmul is one IMAD a step, so it measures the card's
 // 32-bit multiply-add rate, the rate that bounds the 64-bit modular
-// kernels K1-K7).  Each thread takes four elements with one 16-byte load
-// and one 16-byte store, in a grid-stride loop.
+// kernels K2-K7).  The chains take one 16-byte vector a thread in a
+// grid-stride loop over at most 132 x 16 blocks.  The copy takes a block
+// for each tile of 4 x 256 16-byte vectors, each thread with its four
+// independent loads in flight before its stores, and lets the block
+// scheduler fill the card (on the H100 a persistent grid of one wave of
+// resident blocks walking the tiles was slower than Tensor.copy_).  The
+// copy takes any element count (its last n % 4 elements one by one); the
+// chains take 4n.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -56,33 +62,72 @@ u32_chain_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
   for (long long i = blockIdx.x * (long long)THREADS + threadIdx.x; i < n4;
        i += (long long)gridDim.x * THREADS) {
     uint4 v = x[i];
-    if (KIND != 0) {
-      v.x = chain<KIND>(v.x, k);
-      v.y = chain<KIND>(v.y, k);
-      v.z = chain<KIND>(v.z, k);
-      v.w = chain<KIND>(v.w, k);
-    }
+    v.x = chain<KIND>(v.x, k);
+    v.y = chain<KIND>(v.y, k);
+    v.z = chain<KIND>(v.z, k);
+    v.w = chain<KIND>(v.w, k);
     out[i] = v;
   }
 }
 
-}  // namespace
+// the copy: a block a tile of COPY_UNROLL x 256 vectors, each thread's
+// loads all in flight before its stores; block 0 copies the last n % 4
+// elements one by one
+constexpr int COPY_UNROLL = 4;
 
-// kind: 0 copy, 1 addmul, 2 shift, 3 cmpadd; n4 = elements / 4.
-extern "C" int mf_u32_chain(const void* x, void* out, long long n4, int kind,
-                            int k, void* stream) {
+__global__ void __launch_bounds__(THREADS)
+u32_copy_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
+                long long n) {
+  const long long n4 = n / 4;
+  const long long t0 = blockIdx.x * static_cast<long long>(THREADS) * COPY_UNROLL;
+  uint4 v[COPY_UNROLL];
+#pragma unroll
+  for (int u = 0; u < COPY_UNROLL; ++u) {
+    const long long i = t0 + u * THREADS + threadIdx.x;
+    if (i < n4) v[u] = x[i];
+  }
+#pragma unroll
+  for (int u = 0; u < COPY_UNROLL; ++u) {
+    const long long i = t0 + u * THREADS + threadIdx.x;
+    if (i < n4) out[i] = v[u];
+  }
+  const long long i = 4 * n4 + threadIdx.x;
+  if (blockIdx.x == 0 && i < n)
+    reinterpret_cast<uint32_t*>(out)[i] = reinterpret_cast<const uint32_t*>(x)[i];
+}
+
+template <int KIND>
+int launch_chain(const uint4* x, uint4* out, long long n, int k,
+                 cudaStream_t s) {
+  if (n % 4) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n4 = n / 4;
   long long want = (n4 + THREADS - 1) / THREADS;
   int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
   if (blocks < 1) blocks = 1;
+  u32_chain_kernel<KIND><<<blocks, THREADS, 0, s>>>(x, out, n4, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// kind: 0 copy, 1 addmul, 2 shift, 3 cmpadd; n elements, any count for the
+// copy and 4n for the chains (both pointers 16-byte aligned).
+extern "C" int mf_u32_chain(const void* x, void* out, long long n, int kind,
+                            int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint4* in = static_cast<const uint4*>(x);
   uint4* o = static_cast<uint4*>(out);
   switch (kind) {
-    case 0: u32_chain_kernel<0><<<blocks, THREADS, 0, s>>>(in, o, n4, k); break;
-    case 1: u32_chain_kernel<1><<<blocks, THREADS, 0, s>>>(in, o, n4, k); break;
-    case 2: u32_chain_kernel<2><<<blocks, THREADS, 0, s>>>(in, o, n4, k); break;
-    case 3: u32_chain_kernel<3><<<blocks, THREADS, 0, s>>>(in, o, n4, k); break;
+    case 0: {
+      const long long tile = static_cast<long long>(THREADS) * COPY_UNROLL;
+      const long long tiles = (n / 4 + tile - 1) / tile;
+      if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+      u32_copy_kernel<<<static_cast<int>(tiles < 1 ? 1 : tiles), THREADS, 0, s>>>(in, o, n);
+      return static_cast<int>(cudaGetLastError());
+    }
+    case 1: return launch_chain<1>(in, o, n, k, s);
+    case 2: return launch_chain<2>(in, o, n, k, s);
+    case 3: return launch_chain<3>(in, o, n, k, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -50,7 +50,8 @@ _SIGNATURES = {
     "mf_ntt_mul_ntt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mf_inv_compose": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mf_fp_cmatmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "mf_four_step": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "mf_four_step": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                     _P],
     "mf_cgemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mf_gemm2x2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mf_u32_chain": [_P, _P, _LL, _I, _I, _P],

@@ -14,8 +14,10 @@ smallest primitive root of each modulus, as in the JAX package, so the
 spectra are the same integers.
 
 Kernel K5 (csrc/four_step_ntt.cu) computes the whole forward or inverse on
-a CUDA tensor; a CPU tensor takes the plain version, which follows the JAX
-stages as exact float64-digit modular matmuls (ops/modmatmul.py).
+a CUDA tensor, with Shoup products on 64-bit words, or on 32-bit words when
+every modulus is below 2^30 (`word_bits`); a CPU tensor takes the plain
+version, which follows the JAX stages as exact float64-digit modular
+matmuls (ops/modmatmul.py).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from ..config import generate_primes_1mod  # noqa: F401  (the JAX module's export)
 from . import _backend as be
-from .modmath import kernel_consts, moduli_col, mul_mod, powers, to_mont
+from .modmath import moduli_col, mul_mod, powers
 from .modmatmul import modmatmul
 
 I64 = torch.int64
@@ -110,10 +112,6 @@ def _limb_tables(plan: FourStepPlan, q: int) -> Dict[str, np.ndarray]:
         out["post_i"] = ps_inv * n_inv % q
     else:
         out["post_i"] = np.full(n, n_inv, dtype=object)
-    if n1 == n2:
-        half = np.arange(n1 // 2)
-        out["dft_f"] = pw[half * n2]                 # w1^j, j < n1 / 2
-        out["dft_i"] = pw[((-half) % n1) * n2]
     return {k: v.astype(np.uint64) for k, v in out.items()}
 
 
@@ -121,18 +119,32 @@ class FourStepNTT:
     """Batched forward/inverse NTT over [L, B, N] int64 residues on one
     device (tables live there)."""
 
-    def __init__(self, plan: FourStepPlan, device="cuda"):
+    def __init__(self, plan: FourStepPlan, device="cuda",
+                 words: int | None = None):
+        """`words` is K5's word width: None takes the one the moduli call
+        for (`word_bits`); 64 puts a plan of narrow moduli on the wide
+        route, to compare the two."""
         self.plan = plan
         self.device = be.resolve_device(device)
         self.bits = max(int(q).bit_length() for q in plan.moduli)
         if self.bits >= 56:
             raise ValueError("moduli must be < 2^56")
+        route = word_bits(plan.moduli)
+        if words not in (None, 64, route):
+            raise ValueError(f"K5 cannot take {words}-bit words for moduli "
+                             f"of {self.bits} bits")
+        self._words = words or route
         per_limb = [_limb_tables(plan, q) for q in plan.moduli]
         tabs = {k: np.stack([t[k] for t in per_limb]) for k in per_limb[0]}
         self._t = {k: torch.from_numpy(v.view(np.int64)).to(self.device)
                    for k, v in tabs.items()}
         self._q3 = moduli_col(plan.moduli, 2, self.device)
         self._q4 = moduli_col(plan.moduli, 3, self.device)
+
+    @property
+    def word_bits(self) -> int:
+        """K5's route, fixed with its tables when the object is made."""
+        return self._words
 
     # -- dispatch ----------------------------------------------------------------
 
@@ -185,15 +197,21 @@ class FourStepNTT:
 
     @functools.cached_property
     def _kernel_tables(self) -> Dict[str, torch.Tensor]:
-        """The kernel's tables in Montgomery form (value * 2^64 mod q)."""
+        """The kernel's tables as Shoup pairs on its route (`shoup_pairs`):
+        the DFT roots w_m^(+-e), e < m, the element-wise products and the
+        moduli."""
         p = self.plan
         if p.n1 != p.n2:
             raise ValueError(f"kernel K5 needs n1 == n2 (plan {p.n1} x {p.n2})")
-        names = ["dft_f", "dft_i", "tw_f", "tw_i", "post_i"]
+        # row 1 of the stage tables: w1^(+-e), e < m
+        tabs = {"roots_f": self._t["t1f"][:, 1], "roots_i": self._t["t1i"][:, 1],
+                "tw_f": self._t["tw_f"], "tw_i": self._t["tw_i"],
+                "post_i": self._t["post_i"]}
         if p.negacyclic:
-            names.append("twist_f")
-        out = {k: to_mont(self._t[k], p.moduli).contiguous() for k in names}
-        out["consts"] = kernel_consts(p.moduli, self.device)
+            tabs["twist_f"] = self._t["twist_f"]
+        out = {k: shoup_pairs(v, p.moduli, self.word_bits).to(self.device)
+               for k, v in tabs.items()}
+        out["moduli"] = torch.tensor(p.moduli, dtype=I64, device=self.device)
         return out
 
     def _launch(self, name: str, x: torch.Tensor, col_first: bool,
@@ -205,20 +223,48 @@ class FourStepNTT:
         if B > 65535:
             raise ValueError(f"batch {B} exceeds the kernel grid (65535)")
         out = torch.empty_like(x)
-        be.launch(name, "mf_four_step", x.device, x, out, k["consts"], L, B,
-                  p.n1, int(col_first), *pass_a, *pass_b)
+        be.launch(name, "mf_four_step", x.device, x, out, k["moduli"], L, B,
+                  p.n1, int(col_first), self.word_bits, *pass_a, *pass_b)
         return out
 
     def forward_kernel(self, x: torch.Tensor) -> torch.Tensor:
         k = self._kernel_tables
         # pass A: columns, psi^i before the DFT, w_N^(i2 k1) after; pass B: rows
         return self._launch("four_step_fwd", x, True,
-                            (k["dft_f"], k.get("twist_f"), k["tw_f"]),
-                            (k["dft_f"], None, None))
+                            (k["roots_f"], k.get("twist_f"), k["tw_f"]),
+                            (k["roots_f"], None, None))
 
     def inverse_kernel(self, xf: torch.Tensor) -> torch.Tensor:
         k = self._kernel_tables
         # pass A: rows, w_N^-(i2 k1) after; pass B: columns, n^-1 psi^-i after
         return self._launch("four_step_inv", xf, False,
-                            (k["dft_i"], None, k["tw_i"]),
-                            (k["dft_i"], None, k["post_i"]))
+                            (k["roots_i"], None, k["tw_i"]),
+                            (k["roots_i"], None, k["post_i"]))
+
+
+def word_bits(moduli: Sequence[int]) -> int:
+    """K5's route: 32-bit words when every modulus is below 2^30 (so the
+    lazy range 4q fits), else 64-bit words (q < 2^56)."""
+    return 32 if max(int(q) for q in moduli) < 1 << 30 else 64
+
+
+def shoup_pairs(table: torch.Tensor, moduli: Sequence[int], bits: int
+                ) -> torch.Tensor:
+    """A canonical [L, ...] table as K5's Shoup pairs, int64 on the CPU: on
+    the 64-bit route [L, ..., 2] (w, floor(w 2^64 / q)), on the 32-bit
+    route [L, ...] holding w | floor(w 2^32 / q) << 32.  w' is exact: a long
+    division one byte at a time, where r 2^8 < q 2^8 < 2^64 (q < 2^56)
+    never leaves uint64."""
+    w = table.cpu().numpy().view(np.uint64)
+    q = np.asarray(moduli, dtype=np.uint64).reshape((-1,) + (1,) * (w.ndim - 1))
+    r, wp = w.copy(), np.zeros(w.shape, dtype=np.uint64)
+    for _ in range(bits // 8):
+        r = r << np.uint64(8)
+        d = r // q
+        r = r - d * q
+        wp = (wp << np.uint64(8)) | d
+    if bits == 64:
+        pairs = np.stack([w, wp], axis=-1)
+    else:
+        pairs = w | (wp << np.uint64(32))
+    return torch.from_numpy(np.ascontiguousarray(pairs).view(np.int64))

@@ -68,12 +68,20 @@ def u32_chain_plain(x: torch.Tensor, kind: str, k: int) -> torch.Tensor:
     return _as_i32(acc)
 
 
-def u32_chain_kernel(x: torch.Tensor, kind: str, k: int) -> torch.Tensor:
+def u32_chain_kernel(x: torch.Tensor, kind: str, k: int,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """K11 on a CUDA tensor: a chain on 4n elements, the copy on any count
+    and into `out` if given (a tensor like x, so that a timing can reuse
+    its buffers)."""
     be.check(x, "x", I32, tuple(x.shape))
-    if x.numel() % 4 or x.data_ptr() % 16:
-        raise ValueError("K11 takes 16-byte aligned tensors of 4n elements")
-    out = torch.empty_like(x)
-    be.launch("micro_vpu", "mf_u32_chain", x.device, x, out, x.numel() // 4,
+    if kind != "copy" and (x.numel() % 4 or out is not None):
+        raise ValueError("K11's chains take 4n elements and no out=")
+    if out is None:
+        out = torch.empty_like(x)
+    be.check(out, "out", I32, tuple(x.shape))
+    if x.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("K11 takes 16-byte aligned tensors")
+    be.launch("micro_vpu", "mf_u32_chain", x.device, x, out, x.numel(),
               VPU_KINDS[kind], int(k))
     return out
 

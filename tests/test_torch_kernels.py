@@ -682,20 +682,41 @@ def test_cuda_fp_cmatmul_matches_plain(cuda, table):
         assert torch.equal(g.cpu(), w.cpu())
 
 
+# (bits, N, negacyclic, limbs, batch, fill): m = sqrt(N) from 2 to 4096; the
+# register kernel at m = 4, 16, 64, 256 and the radix-2 loop at the others;
+# moduli below 2^30 on the 32-bit route, the others on the 64-bit one
+FOUR_STEP_CASES = [
+    (35, 1024, True, 3, 5, "random"), (28, 4096, True, 3, 5, "random"),
+    (35, 256, False, 3, 5, "random"), (23, 64, True, 3, 5, "random"),
+    (23, 64, True, 3, 5, "max"),
+    (35, 1 << 16, True, 2, 3, "random"), (28, 1 << 16, True, 2, 3, "random"),
+    (30, 1 << 16, False, 2, 3, "random"), (55, 1 << 16, True, 2, 3, "random"),
+    (55, 1 << 16, True, 2, 3, "max"), (28, 1 << 16, True, 2, 3, "max"),
+    (35, 4, True, 3, 5, "random"), (28, 4, False, 3, 5, "max"),
+    (30, 16, True, 3, 5, "random"), (55, 16, False, 3, 5, "max"),
+    (35, 1 << 24, True, 1, 1, "random"), (28, 1 << 24, False, 1, 1, "max"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits,n,nega", [(35, 1024, True), (28, 4096, True),
-                                         (35, 256, False), (23, 64, True)])
-def test_cuda_four_step_ntt_matches_plain(cuda, bits, n, nega):
+@pytest.mark.parametrize("bits,n,nega,limbs,batch,fill", FOUR_STEP_CASES)
+def test_cuda_four_step_ntt_matches_plain(cuda, bits, n, nega, limbs, batch,
+                                          fill):
     from matrix_fhe_tpu_torch.ops.ntt_large import (FourStepNTT, FourStepPlan,
                                                     generate_primes_1mod)
     rng = np.random.default_rng(16)
-    moduli = generate_primes_1mod(3, bits, 2 * n)
+    moduli = generate_primes_1mod(limbs, bits, 2 * n)
     ntt = FourStepNTT(FourStepPlan.make(n, moduli, negacyclic=nega), cuda)
-    x = i64(residues(rng, moduli, (5, n))).to(cuda)
+    assert ntt.word_bits == (32 if bits <= 30 else 64)
+    if fill == "max":
+        x = i64(np.stack([np.full((batch, n), q - 1, dtype=np.uint64)
+                          for q in moduli])).to(cuda)
+    else:
+        x = i64(residues(rng, moduli, (batch, n))).to(cuda)
     fwd = _launched("four_step_fwd", lambda: ntt.forward(x))
-    assert torch.equal(fwd.cpu(), ntt.forward_plain(x).cpu())
+    assert torch.equal(fwd, ntt.forward_plain(x))
     back = _launched("four_step_inv", lambda: ntt.inverse(fwd))
-    assert torch.equal(back.cpu(), ntt.inverse_plain(fwd).cpu())
+    assert torch.equal(back, ntt.inverse_plain(fwd))
     assert torch.equal(back, x)
 
 
@@ -781,14 +802,34 @@ def test_cuda_stage_twiddle_matches_plain(cuda, case):
 @pytest.mark.parametrize("kind,k", [("copy", 0), ("addmul", 32),
                                     ("shift", 128), ("cmpadd", 48)])
 def test_cuda_u32_chain_matches_plain(cuda, kind, k):
-    """K11 at one pass of its grid-stride loop, and at [4, 16, 256, 256]
-    (2^20 16-byte vectors over at most 132 x 16 blocks of 256: two)."""
+    """K11 at [2, 8, 256, 256] and [4, 16, 256, 256]: one and two passes of
+    the chains' grid-stride loop (2^20 16-byte vectors over at most
+    132 x 16 blocks of 256), 256 and 1,024 of the copy's tiles of
+    4 x 256 vectors."""
     gen = torch.Generator(device=cuda).manual_seed(28)
     for shape in ((2, 8, 256, 256), (4, 16, 256, 256)):
         x = torch.randint(-(1 << 31), 1 << 31, shape, generator=gen,
                           dtype=torch.int32, device=cuda)
         got = _launched("micro_vpu", lambda: probes.u32_chain(x, kind, k))
         assert torch.equal(got, probes.u32_chain_plain(x, kind, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3,), (7, 1001), ((1 << 24) + 3,)])
+def test_cuda_u32_copy_ragged(cuda, shape):
+    """K11's copy on element counts that are not a multiple of 4 (the tail)
+    nor of a tile (4 x 256 16-byte vectors), from less than one tile to
+    4,096 of them, into a given output buffer; the chains refuse them."""
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    x = torch.randint(-(1 << 31), 1 << 31, shape, generator=gen,
+                      dtype=torch.int32, device=cuda)
+    out = torch.full_like(x, 7)
+    got = _launched("micro_vpu",
+                    lambda: probes.u32_chain_kernel(x, "copy", 0, out=out))
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(got, x)
+    with pytest.raises(ValueError, match="4n elements"):
+        probes.u32_chain_kernel(x, "addmul", 32)
 
 
 @pytest.mark.cuda
