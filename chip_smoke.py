@@ -39,15 +39,18 @@ and read just after:
 
 Every kernel is held bit for bit against its plain PyTorch version at the
 shapes its path gives it, and both are timed, with the least time the card
-could take for the same work (bytes at 3.35 TB/s; K1 and K10a's u8 digit
-products at the int8 tensor-core rate of 1,979 TOP/s; the 64 x 64-bit
-products of K2-K7 as 32-bit multiply-adds, counted from the SASS of K6's
-inner loop, at the card's IMAD rate of 64 a clock on each SM; K5's Shoup
-products at the IMADs a product of its register kernel's SASS, per word
-width, its index and address IMADs left out) and, where one PyTorch call computes the same function, that call's
-time (K11's copy: Tensor.copy_ on the same buffers, in turns).  For each
-K1, K10a and K5 row a [bound] line logs the byte and operation bounds apart
-and the IMAD bound of the earlier 64-bit route.
+could take for the same work (bytes at 3.35 TB/s; K1, K10a and K3's u8
+digit products and K4's s8 digit products by the JAX kernel's Karatsuba
+method at the int8 tensor-core rate of 1,979 TOP/s; the 64 x 64-bit
+products of K2, K6 and K7 as 32-bit multiply-adds, counted from the SASS of
+K6's inner loop, at the card's IMAD rate of 64 a clock on each SM; K5's
+Shoup products at the IMADs a product of its register kernel's SASS, per
+word width, its index and address IMADs left out) and, where one PyTorch
+call computes the same function, that call's time (K11's copy:
+Tensor.copy_ on the same buffers, in turns).  For each K1, K3, K4, K10a
+and K5 row a [bound] line logs the byte and operation bounds apart and the
+IMAD bound of the earlier 64-bit route; K3's parts (split, GEMM, compose)
+and K4's split pass are timed apart on [kernel] lines.
 Fails (nonzero exit, no result line) without a CUDA device, on a build or
 launch error, on any disagreement, or when a path's check fails.
 
@@ -176,6 +179,55 @@ def stage_work(stage, data, twiddle=False) -> dict:
             "imad_products": stage_products(stage, data) + L * outs * twiddle}
 
 
+def fp_work(fp, m: int) -> dict:
+    """Operations of one K4 call on [m] columns by the JAX kernel's method:
+    s8 digit products, 3 tchunks dchunks 2 W K m (Karatsuba's three
+    products, tchunks balanced 7-bit digits of the table as
+    _split_tables_balanced counts them, dchunks = DATA_CHUNKS = 6 at
+    X_BITS = 37).  The kernel makes four real products on 8-bit digits,
+    100/90 of that: the design's cost, not counted.  "imad_products" is
+    the earlier 64-bit route's 4 W K m."""
+    from matrix_fhe_tpu_torch.ops.fpmatmul import X_BITS
+    W, K = fp.tr.shape
+    mx = int(torch.stack([fp.tr.abs().max(), fp.ti.abs().max(),
+                          (fp.tr + fp.ti).abs().max()]).max())
+    tchunks = 1
+    while 127 * 128 ** (tchunks - 1) // 2 <= mx:
+        tchunks += 1
+    dchunks = -(-(X_BITS + 3) // 7)
+    return {"work": {"int8": 3 * tchunks * dchunks * 2 * W * K * m},
+            "imad_products": 4 * W * K * m}
+
+
+def check_fp_cmatmul(name, fp, m, gen):
+    """K4's row at [W, K] @ [K, m] on random data |x| < 2^37 (the extreme
+    2^37 in a few entries) through the table's cut planes, and its split
+    pass timed alone on a [kernel] log line."""
+    from matrix_fhe_tpu_torch.ops import _backend as be
+    from matrix_fhe_tpu_torch.ops.fpmatmul import (fp_cmatmul_kernel,
+                                                   fp_cmatmul_plain)
+    k = fp.tr.shape[1]
+    xr, xi = (torch.randint(-(1 << 37), 1 << 37, (k, m), generator=gen,
+                            device="cuda", dtype=torch.int64)
+              for _ in range(2))
+    xr[0, :5] = 1 << 37
+    xi[0, :5] = -(1 << 37)
+    planes = fp.planes()
+    row = check_kernel(
+        name, "fp_cmatmul", "matrix_fhe_tpu_torch/csrc/fp_cmatmul.cu",
+        "matrix_fhe_tpu/ops/fpmatmul.py:129",
+        lambda: fp_cmatmul_kernel(fp.tr, fp.ti, xr, xi, planes),
+        lambda: fp_cmatmul_plain(fp.tr, fp.ti, xr, xi),
+        [fp.tr, fp.ti, xr, xi], **fp_work(fp, m))
+    xp = torch.empty((2, planes.shape[1], m, planes.shape[-1]),
+                     dtype=torch.int8, device="cuda")
+    split_ms = cuda_ms(lambda: be.launch(
+        "fp_cmatmul_split", "mf_fp_split", xr.device, xr, xi, xp, k, m,
+        planes.shape[-1]), 5)
+    log(f"[kernel] {name}: split pass alone {split_ms:.3f} ms")
+    return row
+
+
 def _sass_loops(lines):
     """(start, end) address ranges of the backward branches in SASS."""
     addr_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*)")
@@ -282,8 +334,8 @@ def imads_per_product(funcs):
     its shared-memory loads, whatever the compiler's unrolling: each k-step
     reads 16 residues of 8 bytes (4 each of Ar, Ai, Br, Bi) and makes
     4 x 4 x 4 = 64 products, so the loop's products are its LDS bytes / 2.
-    K2-K7 share the product helper (csrc/modarith.cuh: mac_u128).  Returns
-    (IMADs per product, IMADs, products)."""
+    K2, K6 and K7 share the product helper (csrc/modarith.cuh: mac_u128).
+    Returns (IMADs per product, IMADs, products)."""
     body = next(f for name, f in funcs.items() if "cgemm_kernel" in name)
     insts, loops = _sass_loops(body.splitlines())
 
@@ -310,21 +362,20 @@ def imads_per_product(funcs):
     return imads / products, imads, products
 
 
-def stage_tensor_core_ops(funcs) -> int:
-    """Warpgroup tensor-core instructions (IGMMA) in K1's stage_kernel; it
-    must have some: its products run on the int8 tensor cores."""
-    body = next(f for name, f in funcs.items() if "stage_kernel" in name)
+def tensor_core_ops(funcs, kernel: str) -> int:
+    """Warpgroup tensor-core instructions (IGMMA) in a kernel whose
+    products run on the int8 tensor cores (K1's stage_kernel, K4's
+    fp_cmatmul_kernel); it must have some."""
+    body = next(f for name, f in funcs.items() if kernel in name)
     insts, _ = _sass_loops(body.splitlines())
     n = sum(1 for _, t in insts if "GMMA" in _opcode(t))
     if n == 0:
-        raise AssertionError("stage_kernel has no wgmma instruction")
+        raise AssertionError(f"{kernel} has no wgmma instruction")
     return n
 
 
 def kernel_checks(ctx, gen):
     """K1-K4 against their plain versions at the ref path's shapes."""
-    from matrix_fhe_tpu_torch.ops.fpmatmul import (fp_cmatmul_kernel,
-                                                   fp_cmatmul_plain)
     p = ctx.params
     W, n = p.phi, p.n
     wt, xntt = ctx.wt, ctx.xntt
@@ -360,19 +411,18 @@ def kernel_checks(ctx, gen):
         "matrix_fhe_tpu_torch/csrc/inv_compose.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1731",
         lambda: k3.kernel(x_ev), lambda: k3.plain(x_ev), [k3.table, x_ev],
-        {"products": L * W * W * 2 * n * n}))
-    for label, fp, k, m in (("sigma sandwich", ctx.encoder._fp_vi, n, W * n),
-                            ("W-DFT", wt._fp_dft, W, n * n)):
-        xr, xi = (torch.randint(-(1 << 37), 1 << 37, (k, m), generator=gen,
-                                device="cuda", dtype=torch.int64)
-                  for _ in range(2))
-        rows.append(check_kernel(
-            f"fp_cmatmul (K4, {label})", "fp_cmatmul",
-            "matrix_fhe_tpu_torch/csrc/fp_cmatmul.cu",
-            "matrix_fhe_tpu/ops/fpmatmul.py:129",
-            lambda fp=fp, xr=xr, xi=xi: fp_cmatmul_kernel(fp.tr, fp.ti, xr, xi),
-            lambda fp=fp, xr=xr, xi=xi: fp_cmatmul_plain(fp.tr, fp.ti, xr, xi),
-            [fp.tr, fp.ti, xr, xi], {"products": 4 * k * k * m}))
+        **stage_work(k3._stage, x_ev)))
+    r_ev = k3._stage.kernel(x_ev)
+    log(f"[kernel] inv_compose (K3) in parts: split "
+        f"{cuda_ms(lambda: k3._stage.split_digits(x_ev), 5):.3f} ms, split + "
+        f"GEMM {cuda_ms(lambda: k3._stage.kernel(x_ev), 5):.3f} ms, compose "
+        f"{cuda_ms(lambda: k3.compose(r_ev), 5):.3f} ms (its bytes, r' read "
+        f"and acc, k written: "
+        f"{1e3 * 8 * (L + 2) * W * 2 * n * n / HBM_BYTES_PER_S:.3f} ms)")
+    del r_ev
+    for label, fp, m in (("sigma sandwich", ctx.encoder._fp_vi, W * n),
+                         ("W-DFT", wt._fp_dft, n * n)):
+        rows.append(check_fp_cmatmul(f"fp_cmatmul (K4, {label})", fp, m, gen))
     return rows
 
 
@@ -673,21 +723,11 @@ def gl2_path():
     del d_w, d_x
     # K4 on the encode's inverse tables (Encoder.idft2_exact and
     # WTransform.dft_inverse_pair) at [W, n, n]
-    from matrix_fhe_tpu_torch.ops.fpmatmul import (fp_cmatmul_kernel,
-                                                   fp_cmatmul_plain)
-    for label, fp, k, cols in (
-            ("inverse sigma sandwich", ctx.encoder._fp_vi, n, W * n),
-            ("W-IDFT", ctx.wt._fp_idft, W, n * n)):
-        wr, wi = (torch.randint(-(1 << 37), 1 << 37, (k, cols), generator=gen,
-                                device="cuda", dtype=torch.int64)
-                  for _ in range(2))
-        rows.append(check_kernel(
-            f"fp_cmatmul (K4, gl2 {label})", "fp_cmatmul",
-            "matrix_fhe_tpu_torch/csrc/fp_cmatmul.cu",
-            "matrix_fhe_tpu/ops/fpmatmul.py:129",
-            lambda fp=fp, wr=wr, wi=wi: fp_cmatmul_kernel(fp.tr, fp.ti, wr, wi),
-            lambda fp=fp, wr=wr, wi=wi: fp_cmatmul_plain(fp.tr, fp.ti, wr, wi),
-            [fp.tr, fp.ti, wr, wi], {"products": 4 * k * k * cols}))
+    for label, fp, cols in (
+            ("inverse sigma sandwich", ctx.encoder._fp_vi, W * n),
+            ("W-IDFT", ctx.wt._fp_idft, n * n)):
+        rows.append(check_fp_cmatmul(f"fp_cmatmul (K4, gl2 {label})", fp,
+                                     cols, gen))
     for row in rows:
         row["launches"] = launches.get(row.pop("key"), 0)
 
@@ -1113,8 +1153,9 @@ def main() -> int:
         f"K5 four_step_reg at R = 16: {k5_imads[64]:.2f} IMADs on registers "
         f"a Shoup product on 64-bit words, {k5_imads[32]:.2f} on 32-bit "
         f"words; "
-        f"K1 stage_kernel: {stage_tensor_core_ops(funcs)} IGMMA (u8 wgmma) "
-        f"instructions (cuobjdump -sass)")
+        f"K1 stage_kernel: {tensor_core_ops(funcs, 'stage_kernel')} IGMMA "
+        f"(u8 wgmma) instructions, K4 fp_cmatmul_kernel: "
+        f"{tensor_core_ops(funcs, 'fp_cmatmul_kernel')} (s8) (cuobjdump -sass)")
     t_path = time.perf_counter()
 
     p = get_params("ref")
@@ -1165,6 +1206,12 @@ def main() -> int:
         row["launches"] = launches.get(row.pop("key"), 0)
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on the path")
+    # K3 is a split, K1's GEMM and a compose under keys of its own, K4 a
+    # split and its GEMM
+    for parts in (("inv_compose", "inv_compose_stage", "inv_compose_split"),
+                  ("fp_cmatmul", "fp_cmatmul_split")):
+        if len({launches.get(k, 0) for k in parts}) != 1:
+            raise AssertionError(f"launches of {parts} differ: {launches}")
     for out in (dr, di, d2r, d2i):
         if out.shape != (p.phi, p.n, p.n) or not torch.isfinite(out).all():
             raise AssertionError("decoded output has the wrong shape or "
@@ -1180,7 +1227,8 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     log(f"[perf] ref roundtrip median {rt_ms:.3f} ms over {len(times)} runs "
         f"(min {min(times):.3f}, max {max(times):.3f}); "
-        f"max_memory_allocated {peak / 2**30:.3f} GiB")
+        f"max_memory_allocated {peak / 2**30:.3f} GiB (3.130 with the earlier "
+        "64-bit K3 and K4 kernels)")
 
     # -- zero-noise identity at ref -----------------------------------------
     ctx0 = init_he_backend("ref", zero_noise=True, device="cuda")

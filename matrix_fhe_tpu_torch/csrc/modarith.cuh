@@ -53,13 +53,4 @@ __device__ __forceinline__ void mac_u128(uint64_t& hi, uint64_t& lo,
   hi += phi + (lo < plo ? 1ull : 0ull);
 }
 
-// (hi, lo) += a * b, signed 64 x 64 -> 128 two's complement.
-__device__ __forceinline__ void mac_s128(int64_t& hi, uint64_t& lo,
-                                         int64_t a, int64_t b) {
-  uint64_t plo = static_cast<uint64_t>(a) * static_cast<uint64_t>(b);
-  int64_t phi = __mul64hi(a, b);
-  lo += plo;
-  hi += phi + (lo < plo ? 1ll : 0ll);
-}
-
 }  // namespace mfhe

@@ -56,7 +56,7 @@
 #include <cstdint>
 
 #include "modarith.cuh"
-#include "wgmma_u8.cuh"
+#include "wgmma8.cuh"
 
 namespace {
 
@@ -91,34 +91,11 @@ __device__ __forceinline__ int digits_of(uint64_t q) {
   return (71 - __clzll(static_cast<long long>(q))) >> 3;   // ceil(bits / 8)
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// K-major operand, 128-byte swizzle: rows of 128 bytes, 8-row atoms 1024
-// bytes apart (SBO), leading offset unused (encoded 1).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-template <int R>
-__device__ __forceinline__ void fence_regs(int (&a)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
-}
+using mfhe::cp_async16;
+using mfhe::cp_async_commit;
+using mfhe::cp_async_wait;
+using mfhe::fence_regs;
+using mfhe::smem_desc;
 
 // S = sum_j diag_j 2^(8 j) for one output, as (hi, lo): hi < 2^16, since
 // every diag_j < 2^31 and d <= 7.
@@ -257,7 +234,7 @@ __device__ __forceinline__ void stage_body(const StageArgs& p, uint32_t sbase,
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < BK / 32; ++kk)
-        mfhe::wgmma_u8<D>(acc, smem_desc(sa + 32 * kk), smem_desc(sb + 32 * kk),
+        mfhe::wgmma8<D, false>(acc, smem_desc(sa + 32 * kk), smem_desc(sb + 32 * kk),
                           (t > c0 || kk > 0) ? 1 : 0);
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");

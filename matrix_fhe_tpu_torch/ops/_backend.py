@@ -31,7 +31,7 @@ BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("stage.cu", "ntt_mul_ntt.cu", "inv_compose.cu", "fp_cmatmul.cu",
            "four_step_ntt.cu", "cgemm.cu", "gemm2x2.cu", "micro_vpu.cu",
            "micro_coissue.cu")
-HEADERS = ("modarith.cuh", "wgmma_u8.cuh")
+HEADERS = ("modarith.cuh", "wgmma8.cuh")
 LIBRARY = os.path.join(BUILD, "libmfhe_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -48,8 +48,9 @@ _SIGNATURES = {
                  _I, _I, _P],
     "mf_stage_split": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mf_ntt_mul_ntt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "mf_inv_compose": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mf_fp_cmatmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mf_inv_compose": [_P, _P, _P, _P, _P, _I, _LL, _P],
+    "mf_fp_split": [_P, _P, _P, _I, _I, _I, _P],
+    "mf_fp_cmatmul": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mf_four_step": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                      _P],
     "mf_cgemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -58,6 +59,7 @@ _SIGNATURES = {
     "mf_coissue": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mf_ntt_mul_ntt_smem": [_I],
     "mf_stage_layout": [_I, _I, _I, ctypes.POINTER(_I)],
+    "mf_fp_layout": [_I, _I, ctypes.POINTER(_I)],
 }
 # host-side queries that return something other than a CUDA error code
 _RESTYPES = {"mf_ntt_mul_ntt_smem": _LL}

@@ -5,11 +5,11 @@ PallasStage with its twiddle, SlicedNttMulNtt, SlicedInvCompose).  Each
 class owns its tables as int64 tensors on one device; calling it on a CUDA
 tensor launches the kernel in ``csrc/`` and on a CPU tensor runs the plain
 PyTorch version, ``plain``, which is the same function (the CPU tests and
-chip_smoke.py hold the two equal).  All limbs run in one launch.  K1 and
-K10a run on the int8 tensor cores over u8 digit planes of the table
-(``slice_tables``, built on the device at a Stage's first CUDA call); K2
-and K3 on 64-bit integer products.  The TPU's limb runs and u32 lo/hi
-planes do not exist here.
+chip_smoke.py hold the two equal).  All limbs run in one launch.  K1,
+K10a and K3's matmul run on the int8 tensor cores over u8 digit planes of
+the table (``slice_tables``, built on the device at a Stage's first CUDA
+call), K3's compose in a pass of its own; K2 on 64-bit integer products.
+The TPU's limb runs and u32 lo/hi planes do not exist here.
 """
 
 from __future__ import annotations
@@ -118,15 +118,19 @@ class Stage:
 
     On the card the products are u8 digit-plane GEMMs on the int8 tensor
     cores (csrc/stage.cu); the left sides first split the data into
-    transposed digit planes (launch key "stage_split").
+    transposed digit planes (launch key "stage_split").  `keys` renames the
+    launch keys of the plain GEMM and the split pass, for a Stage inside
+    another kernel's function (K3).
     """
 
     def __init__(self, tables_u64: np.ndarray, moduli: Sequence[int],
-                 side: str, device):
+                 side: str, device,
+                 keys: Tuple[str, str] = ("stage", "stage_split")):
         if side not in ("left", "right", "batched_left"):
             raise ValueError("side must be 'left', 'right' or 'batched_left', "
                              f"not {side!r}")
         self.side = side
+        self.keys = keys
         self.moduli = tuple(int(q) for q in moduli)
         # the kernel flushes its s32 sums, so any contraction runs; the
         # plain version's float64 digit sums are exact below 2^19 terms
@@ -199,7 +203,7 @@ class Stage:
             out = torch.empty((L, R, W), dtype=I64, device=data.device)
             rows = R
         if twiddle_mont is None:
-            key, tw, tw_rows = "stage", None, 1
+            key, tw, tw_rows = self.keys[0], None, 1
         else:
             key = "stage_tw" if self.side == "right" else "stage_tw_batched"
             tw = twiddle_mont
@@ -231,7 +235,7 @@ class Stage:
         return self._layout[:2]
 
     def split_digits(self, data: torch.Tensor) -> torch.Tensor:
-        """The left sides' split pass alone (launch key "stage_split"): the
+        """The left sides' split pass alone (launch key keys[1]): the
         CUDA data [L, K, M] or [L, B, K, M] as K-major u8 digit rows
         [L B, M, KBs], d_l planes of Kp bytes each."""
         if self.side == "right":
@@ -244,7 +248,7 @@ class Stage:
         kp, kbs = self._device_layout()
         z = L * batch
         xs = torch.empty((z, rows, kbs), dtype=torch.uint8, device=data.device)
-        be.launch("stage_split", "mf_stage_split", data.device, data, xs,
+        be.launch(self.keys[1], "mf_stage_split", data.device, data, xs,
                   self.consts, z, batch, K, rows, kp, kbs)
         return xs
 
@@ -307,15 +311,23 @@ class InvCompose:
     x [L, W, M] eval residues, tables [L, W, W] with M_l^-1 mod q_l folded
     in.  Returns (acc, k), both int64 [W, M]:
       acc = sum_l r'_l * (M_l mod 2^64) mod 2^64 (bit pattern),
-      k   = round(sum_l r'_l / q_l)  (f64 sum in limb order, half-even)."""
+      k   = round(sum_l r'_l / q_l)  (f64 sum in limb order, half-even).
+
+    On the card r' = T' @ x mod q is K1's digit-plane GEMM on a Stage of
+    the scaled tables (launch keys "inv_compose_split" and
+    "inv_compose_stage", so that K1's own counts stay K1's), and a compose
+    pass (csrc/inv_compose.cu, key "inv_compose") folds its L planes into
+    acc and k; r' and the split planes are scratch, freed on return."""
 
     def __init__(self, scaled_u64: np.ndarray, moduli: Sequence[int],
                  big_q: int, device):
         self.moduli = tuple(int(q) for q in moduli)
         self.bits = _bits(self.moduli, scaled_u64.shape[-1])
-        self.table = _as_i64(scaled_u64, device)
-        self.consts = kernel_consts(self.moduli, device)
-        self.q = moduli_col(self.moduli, 2, device)
+        self._stage = Stage(scaled_u64, self.moduli, "left", device,
+                            keys=("inv_compose_stage", "inv_compose_split"))
+        self.table = self._stage.table
+        self.consts = self._stage.consts
+        self.q = self._stage.q
         self.m64 = [to_signed64(big_q // q) for q in self.moduli]
         self.m64_t = torch.tensor(self.m64, dtype=I64, device=device)
 
@@ -337,8 +349,18 @@ class InvCompose:
         L, W, K = self.table.shape
         M = x.shape[2] if x.dim() == 3 else -1
         be.check(x, "x", I64, (L, K, M))
-        acc = torch.empty((W, M), dtype=I64, device=x.device)
-        k = torch.empty((W, M), dtype=I64, device=x.device)
-        be.launch("inv_compose", "mf_inv_compose", x.device, x, self.table,
-                  self.consts, self.m64_t, acc, k, L, W, K, M)
+        return self.compose(self._stage.kernel(x))   # r' is scratch
+
+    def compose(self, r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The compose pass alone (launch key "inv_compose"): the canonical
+        CUDA residues r' [L, W, M] into (acc, k)."""
+        if not be.on_device(r, self.table):
+            raise ValueError("the compose pass runs on CUDA tensors only")
+        L, W, _ = self.table.shape
+        M = r.shape[2] if r.dim() == 3 else -1
+        be.check(r, "r", I64, (L, W, M))
+        acc = torch.empty((W, M), dtype=I64, device=r.device)
+        k = torch.empty((W, M), dtype=I64, device=r.device)
+        be.launch("inv_compose", "mf_inv_compose", r.device, r, self.consts,
+                  self.m64_t, acc, k, L, W * M)
         return acc, k

@@ -13,10 +13,17 @@ sum_k t_int * x_int and returns them as sign plus 96-bit magnitude words
 The scaling and the renormalization between chained calls run in plain
 torch around the kernel.  Powers of two are built from their bits
 (ddfloat.pow2), so every scale is exact on every device.
+
+On the card the sums are balanced s8 digit-plane GEMMs on the int8 tensor
+cores (csrc/fp_cmatmul.cu): the table's digit planes are cut once
+(``table_planes``, at an ExactComplexMatmul's first CUDA call), the data's
+by a split pass (launch key "fp_cmatmul_split") before the GEMM (launch key
+"fp_cmatmul").
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -27,6 +34,7 @@ from .ddfloat import pow2, words_shr_round
 
 X_BITS = 37           # |x_int| <= 2^X_BITS (matrix_fhe_tpu default)
 T_DIGITS = 5          # the JAX kernel's balanced-digit table range
+K4_DIGITS = 5         # K4's balanced 8-bit digits of every operand (< 2^39)
 F64 = torch.float64
 I64 = torch.int64
 Words = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -88,24 +96,80 @@ def fp_cmatmul_plain(tr, ti, xr, xi) -> Tuple[Words, Words]:
             _words_from_diagonals([d.to(I64) for d in im]))
 
 
-def fp_cmatmul_kernel(tr, ti, xr, xi) -> Tuple[Words, Words]:
+def plane_layout(w: int, k: int) -> Tuple[int, int, int, int]:
+    """(Wp, Kp, digits, most K) of K4's digit planes for a [w, k] table, as
+    csrc/fp_cmatmul.cu lays them out (mf_fp_layout): table planes
+    [3, digits, Wp, Kp], data planes [2, digits, M, Kp] s8."""
+    layout = (ctypes.c_int * 4)()
+    be.library().mf_fp_layout(w, k, layout)
+    return tuple(layout)
+
+
+def balanced_digits(v: torch.Tensor, count: int = K4_DIGITS):
+    """v = sum_j d_j 2^(8 j) with every d_j in [-128, 127] (int64 tensors),
+    as K4 cuts its operands; raises if v needs more than `count` digits."""
+    out = []
+    for _ in range(count):
+        d = ((v + 128) & 255) - 128
+        out.append(d)
+        v = (v - d) >> 8
+    if bool((v != 0).any()):
+        raise ValueError(f"values outside {count} balanced 8-bit digits")
+    return out
+
+
+def table_planes(tr: torch.Tensor, ti: torch.Tensor, wp: int,
+                 kp: int) -> torch.Tensor:
+    """K4's table planes, s8 [3, K4_DIGITS, wp, kp] on the table's device:
+    the balanced digits of tr, ti and -ti, zero past [W, K]."""
+    W, K = tr.shape
+    planes = torch.zeros((3, K4_DIGITS, wp, kp), dtype=torch.int8,
+                         device=tr.device)
+    for c, t in enumerate((tr, ti, -ti)):
+        for j, d in enumerate(balanced_digits(t)):
+            planes[c, j, :W, :K] = d.to(torch.int8)
+    return planes
+
+
+def fp_cmatmul_kernel(tr, ti, xr, xi, planes=None) -> Tuple[Words, Words]:
+    """K4 on the card: `planes` are the table's (table_planes at
+    plane_layout's pads, cut here when not given).
+
+    The domain is the JAX kernel's, which ExactComplexMatmul keeps by
+    construction: |x| <= 2^X_BITS (2^37, the value 2^37 itself included,
+    which call_words_w's shift-round can give) and
+    max(|tr|, |ti|, |tr + ti|) <= 127 128^4 / 2, with K <= 13,107 (the s32
+    diagonal sums stay exact).  The kernel is exact for any |x|, |t| < 2^39
+    (five balanced 8-bit digits); the data is not checked on the card, the
+    table's digits are when they are cut.  The CPU route
+    (fp_cmatmul_plain) takes |t| < 2^35, |x| < 2^47, K < 2^11."""
     W, K = tr.shape
     M = xr.shape[1]
     be.check(tr, "tr", I64, (W, K))
     be.check(ti, "ti", I64, (W, K))
     be.check(xr, "xr", I64, (K, M))
     be.check(xi, "xi", I64, (K, M))
+    wp, kp, digits, max_k = plane_layout(W, K)
+    if K > max_k:
+        raise ValueError(f"contraction of {K} terms exceeds K4's {max_k}")
+    if planes is None:
+        planes = table_planes(tr, ti, wp, kp)
+    be.check(planes, "planes", torch.int8, (3, digits, wp, kp))
+    xp = torch.empty((2, digits, M, kp), dtype=torch.int8, device=xr.device)
+    be.launch("fp_cmatmul_split", "mf_fp_split", xr.device, xr, xi, xp, K,
+              M, kp)
     out = torch.empty((2, 4, W, M), dtype=I64, device=xr.device)
-    be.launch("fp_cmatmul", "mf_fp_cmatmul", xr.device, tr, ti, xr, xi, out,
-              W, K, M)
+    be.launch("fp_cmatmul", "mf_fp_cmatmul", xr.device, planes, xp, out, W,
+              M, wp, kp)
     return tuple(out[0].unbind(0)), tuple(out[1].unbind(0))
 
 
-def fp_cmatmul(tr, ti, xr, xi) -> Tuple[Words, Words]:
+def fp_cmatmul(tr, ti, xr, xi, planes=None) -> Tuple[Words, Words]:
     """Exact words of (tr + i ti) @ (xr + i xi): the kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (with the table's planes, if given), the plain version on CPU
+    tensors."""
     if be.on_device(tr, ti, xr, xi):
-        return fp_cmatmul_kernel(tr, ti, xr, xi)
+        return fp_cmatmul_kernel(tr, ti, xr, xi, planes)
     return fp_cmatmul_plain(tr, ti, xr, xi)
 
 
@@ -125,10 +189,19 @@ class ExactComplexMatmul:
             np.round(t_complex.real * scale).astype(np.int64)).to(device)
         self.ti = torch.from_numpy(
             np.round(t_complex.imag * scale).astype(np.int64)).to(device)
+        self._planes = None           # K4's table planes, at the first CUDA call
+
+    def planes(self) -> torch.Tensor:
+        """The table's digit planes for the card, cut once."""
+        if self._planes is None:
+            self._planes = table_planes(self.tr, self.ti,
+                                        *plane_layout(self.w, self.k)[:2])
+        return self._planes
 
     def _matmul(self, xr_int, xi_int):
+        planes = self.planes() if self.tr.is_cuda else None
         return fp_cmatmul(self.tr, self.ti, xr_int.contiguous(),
-                          xi_int.contiguous())
+                          xi_int.contiguous(), planes)
 
     def call_words(self, xr: torch.Tensor, xi: torch.Tensor):
         """((m0, m1, m2, sg) re, (..) im, e_scale) with e_scale an int64

@@ -1,5 +1,6 @@
 """Kernels K1-K4, K7, K10a's twiddle form, K11 and K12 of the PyTorch port
-against the JAX package's Pallas kernels.
+against the JAX package's Pallas kernels, and the methods of K1, K3 and
+K4's CUDA kernels transcribed to run on the CPU.
 
 On the CPU each port wrapper runs its plain PyTorch version; the JAX side
 runs the Pallas kernels in interpret mode (SlicedStage, SlicedNttMulNtt,
@@ -276,6 +277,78 @@ def test_scaled_inverse_tables_match_jax():
         u64(Stage(got, P.moduli, "left", "cpu")(i64(x))))
 
 
+# -- K3's two-step method on the card: K1's GEMM, then the compose pass -------
+
+def _compose_pass(r: torch.Tensor, moduli, big_q):
+    """inv_compose_kernel (csrc/inv_compose.cu) in numpy: for each output, acc
+    in wrapping uint64 and k as an f64 sum in limb order of r'_l / (double)
+    q_l, rounded half to even."""
+    rn = u64(r)
+    acc = np.zeros(rn.shape[1:], dtype=np.uint64)
+    kf = np.zeros(rn.shape[1:], dtype=np.float64)
+    for l, q in enumerate(moduli):
+        acc = acc + rn[l] * np.uint64((big_q // q) % (1 << 64))
+        kf = kf + rn[l].astype(np.float64) / np.float64(float(q))
+    return i64(acc), torch.from_numpy(np.rint(kf).astype(np.int64))
+
+
+def _near_half_inputs(p, t, seed, m=24):
+    """Eval residues x [L, W, m] whose r' = T' x (the scaled inverse) puts
+    sum_l r'_l / q_l within 1e-9 of a half-integer in column 0: r'_l = V
+    M_l^-1 mod q_l for V near Q / 2, so that the sum is V / Q plus an
+    integer; the other columns are random.  Returns (x, r', V / Q)."""
+    rng = np.random.default_rng(seed)
+    big_q, W, L = p.q_total, p.phi, len(p.moduli)
+    r = residues(rng, p.moduli, (W, m))
+    cands = [(big_q - 1) // 2, (big_q + 1) // 2]
+    cands += [big_q // 2 + s * int(big_q * f)
+              for f in (1e-10, 3e-10, 9e-10) for s in (1, -1)]
+    fracs = []
+    for w in range(W):
+        v = cands[w % len(cands)]
+        for l, q in enumerate(p.moduli):
+            r[l, w, 0] = v * pow(big_q // q, -1, q) % q
+        fracs.append(v / big_q)
+    # x = W-CRT forward of r'_l M_l: T'_l x_l = M_l^-1 W^-1 W r'_l M_l = r'_l
+    m_l = [(big_q // q) % q for q in p.moduli]
+    rm = tmm.mul_mod(i64(r), torch.tensor(m_l).reshape(L, 1, 1),
+                     torch.tensor(p.moduli).reshape(L, 1, 1))
+    x = Stage(t.w_fwd, p.moduli, "left", "cpu")(rm)
+    return x, i64(r), np.array(fracs)
+
+
+@pytest.mark.parametrize("preset", ["tiny", "small"])
+def test_inv_compose_two_step_matches(preset):
+    """K3 as it runs on the card: K1's Stage on the scaled inverse tables
+    (Stage.plain, which the digit-plane tests hold to the kernel's method),
+    then the compose pass, equals InvCompose.plain bit for bit, and
+    SlicedInvCompose: acc bit for bit, k wherever the JAX kernel's f32 sum
+    cannot move it.  Column 0 holds sums within 1e-9 of a half-integer (two
+    of them within 1 / (2 Q)), so k's rounding in limb order is exercised."""
+    p = get_params(preset)
+    t = build_tables(p)
+    scaled = scaled_inverse_tables(t)
+    x, r_want, fracs = _near_half_inputs(p, t, seed=60)
+    k3 = InvCompose(scaled, p.moduli, p.q_total, "cpu")
+    assert k3._stage.keys == ("inv_compose_stage", "inv_compose_split")
+    r = k3._stage.plain(x)
+    assert torch.equal(r, r_want)
+    acc, k = _compose_pass(r, p.moduli, p.q_total)
+    want_acc, want_k = k3.plain(x)
+    assert torch.equal(acc, want_acc) and torch.equal(k, want_k)
+    assert np.all(np.abs(fracs - 0.5) < 1e-9)
+    acc_l, acc_h, kacc = pn.SlicedInvCompose(scaled, p.moduli, p.q_total)(
+        *jax_split(u64(x)))
+    np.testing.assert_array_equal(u64(acc), jax_join((acc_l, acc_h)))
+    jk = np.round(np.asarray(kacc).astype(np.float64)).astype(np.int64)
+    total = sum(u64(r)[l].astype(np.float64) / float(q)
+                for l, q in enumerate(p.moduli))
+    far = np.abs(total - np.floor(total) - 0.5) > 1e-4
+    assert not far[:, 0].any() and far.sum() > far.size // 2
+    np.testing.assert_array_equal(k.numpy()[far], jk[far])
+    assert np.abs(k.numpy() - jk).max() <= 1
+
+
 # -- K4 -----------------------------------------------------------------------
 
 def _pair_planes(x: np.ndarray):
@@ -329,6 +402,134 @@ def test_fp_call_words_chain_matches(exact_exp2):
     np.testing.assert_array_equal(
         np.asarray(jfp.ExactComplexMatmul.words_to_f64(jw2[0], jw2[2])),
         tfp.ExactComplexMatmul.words_to_f64(tw2[0], tw2[2]).numpy())
+
+
+# -- K4's balanced s8 digit-plane method, transcribed from csrc/fp_cmatmul.cu --
+
+K4_BOUND = 127 * 128 ** 4 // 2        # the JAX kernel's table budget
+
+
+def _fold_words(diags):
+    """fold + store_words of fp_cmatmul_kernel in numpy: sum_s D[s] 2^(8 s)
+    as a signed 128-bit (hi, lo) with carries, then sign and 96-bit
+    magnitude words."""
+    hi = np.zeros(diags[0].shape, dtype=np.int64)
+    lo = np.zeros(diags[0].shape, dtype=np.uint64)
+    for s, d in enumerate(diags):
+        d = d.numpy()
+        if s == 0:
+            plo, phi = d.astype(np.uint64), d >> 63
+        elif 8 * s < 64:
+            plo, phi = d.astype(np.uint64) << np.uint64(8 * s), d >> (64 - 8 * s)
+        else:
+            plo, phi = np.zeros_like(lo), d << (8 * s - 64)
+        lo = lo + plo
+        hi = hi + phi + (lo < plo)
+    neg = hi < 0
+    hu = hi.astype(np.uint64)
+    mlo = np.where(neg, ~lo + np.uint64(1), lo)
+    mhi = np.where(neg, ~hu + (lo == 0), hu)
+    mask = np.uint64(0xFFFFFFFF)
+    return tuple(torch.from_numpy(w.astype(np.int64)) for w in
+                 (mlo & mask, mlo >> np.uint64(32), mhi & mask, neg))
+
+
+def _digit_plane_cmatmul(tr, ti, xr, xi):
+    """fp_split_kernel and fp_cmatmul_kernel in int64 on the CPU: the table
+    planes (table_planes, padded to 32 rows and 128-byte rows as the
+    kernel's layout), the data's balanced digits transposed to K-major
+    planes [2, 5, M, Kp], one s8 GEMM a digit pair (i, j) into diagonal
+    i + j (each s32 sum checked below 2^31), and the 128-bit fold."""
+    W, K = tr.shape
+    M = xr.shape[1]
+    wp, kp = -(-W // 32) * 32, -(-K // 128) * 128
+    tp = tfp.table_planes(tr, ti, wp, kp).to(torch.int64)
+    xp = torch.zeros((2, tfp.K4_DIGITS, M, kp), dtype=torch.int64)
+    for c, x in enumerate((xr, xi)):
+        for j, d in enumerate(tfp.balanced_digits(x)):
+            assert int(d.min()) >= -128 and int(d.max()) <= 127
+            xp[c, j, :, :K] = d.T
+    n_diag = 2 * tfp.K4_DIGITS - 1
+    re = [torch.zeros((wp, M), dtype=torch.int64) for _ in range(n_diag)]
+    im = [torch.zeros((wp, M), dtype=torch.int64) for _ in range(n_diag)]
+    for i in range(tfp.K4_DIGITS):
+        for j in range(tfp.K4_DIGITS):
+            re[i + j] += tp[0, i] @ xp[0, j].T + tp[2, i] @ xp[1, j].T
+            im[i + j] += tp[0, i] @ xp[1, j].T + tp[1, i] @ xp[0, j].T
+    peak = max(int(d.abs().max()) for d in re + im)
+    assert peak < 1 << 31, "an s32 diagonal sum would overflow"
+    assert 2 * tfp.K4_DIGITS * K * (1 << 14) < 1 << 31
+    return (_fold_words([d[:W] for d in re]),
+            _fold_words([d[:W] for d in im]))
+
+
+def _k4_case(case, rng):
+    """(complex table, xr, xi) of one K4 case at M = 200: the small preset's
+    W-DFT and sigma-inverse tables, or a table at K = 64 / 512 whose
+    entries reach the JAX budget max(|tr|, |ti|, |tr + ti|) = 127 128^4 / 2
+    (quantized at exactly 2^30, so that both packages take the same
+    integers), each with data of +-2^37 in part."""
+    if case in ("wdft", "enc_v_inv"):
+        t = getattr(build_tables(get_params("small")), case)
+    else:
+        k = int(case[len("edge-K"):])
+        b = K4_BOUND
+        pats = np.array([(b, 0), (0, b), (-b, 0), (0, -b), (b, -b), (-b, b),
+                         (b // 2, b // 2), (-(b // 2), -(b // 2))])
+        pick = pats[rng.integers(0, len(pats), (40, k))]
+        t = (pick[..., 0] + 1j * pick[..., 1]) * 2.0 ** -30
+    K, M = t.shape[1], 200
+    xs = []
+    for _ in range(2):
+        x = rng.integers(-(1 << 37), (1 << 37) + 1, (K, M))
+        edge = rng.random((K, M)) < 0.3
+        x[edge] = rng.choice([-(1 << 37), 1 << 37], edge.sum())
+        xs.append(x)
+    return t, xs[0], xs[1]
+
+
+@pytest.mark.parametrize("case", ["wdft", "enc_v_inv", "edge-K64",
+                                  "edge-K512"])
+def test_k4_digit_planes_match(case):
+    """K4's method on the card (balanced base-256 s8 digits of tr, ti, -ti
+    and the data, four real products into two sets of 9 s32 diagonal sums,
+    a 128-bit fold) equals fp_cmatmul_plain and the interpret-mode
+    _fp_cmatmul_kernel bit for bit, at the domain's edges: data +-2^37 and
+    tables at the budget, K = 64 and 512, M = 200."""
+    rng = np.random.default_rng(61)
+    t, xr, xi = _k4_case(case, rng)
+    tm = tfp.ExactComplexMatmul(t, "cpu")
+    jm = jfp.ExactComplexMatmul(t)
+    assert tm.t_bits == jm.t_bits
+    if case.startswith("edge"):
+        assert tm.t_bits == 30
+        assert int(torch.maximum(tm.tr.abs(), tm.ti.abs()).max()) == K4_BOUND
+    xr_t, xi_t = torch.from_numpy(xr), torch.from_numpy(xi)
+    got = _digit_plane_cmatmul(tm.tr, tm.ti, xr_t, xi_t)
+    want = tfp.fp_cmatmul_plain(tm.tr, tm.ti, xr_t, xi_t)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+    outs = jm._call(xr.shape[1], 40)(*_pair_planes(xr), *_pair_planes(xi),
+                                     jm._tr[None], jm._ti[None], jm._ts[None])
+    _words_equal([o[0] for o in outs], got[0] + got[1])
+    assert 0 < int(got[0][3].sum()) < got[0][3].numel()
+
+
+def test_k4_table_planes_domain():
+    """table_planes cuts five balanced digits of tr, ti and -ti, in
+    [-128, 127], that sum back to the table; a table past 2^39 raises."""
+    rng = np.random.default_rng(62)
+    tr = torch.from_numpy(rng.integers(-K4_BOUND, K4_BOUND + 1, (40, 70)))
+    ti = torch.from_numpy(rng.integers(-K4_BOUND, K4_BOUND + 1, (40, 70)))
+    planes = tfp.table_planes(tr, ti, 64, 128)
+    assert planes.shape == (3, tfp.K4_DIGITS, 64, 128)
+    for c, t in enumerate((tr, ti, -ti)):
+        back = sum(planes[c, j, :40, :70].to(torch.int64) << (8 * j)
+                   for j in range(tfp.K4_DIGITS))
+        assert torch.equal(back, t)
+    assert not planes[:, :, 40:].any() and not planes[:, :, :, 70:].any()
+    with pytest.raises(ValueError, match="balanced"):
+        tfp.table_planes(tr + (1 << 40), ti, 64, 128)
 
 
 # -- K10a: the stage with its twiddle -------------------------------------------
@@ -680,6 +881,77 @@ def test_cuda_fp_cmatmul_matches_plain(cuda, table):
     want = tfp.fp_cmatmul_plain(tm.tr, tm.ti, xr, xi)
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["tiny", "small", "ref"])
+def test_cuda_inv_compose_own_keys_ragged(cuda, preset):
+    """K3 at M = 2 n^2 + 3, no multiple of any tile ([11, 512, 8195] at ref),
+    and (below ref) on sums within 1e-9 of a half-integer: equal to
+    InvCompose.plain; its split, GEMM and compose launch once each under
+    K3's own keys, and K1's keys do not move."""
+    p = get_params(preset)
+    t = build_tables(p)
+    rng = np.random.default_rng(16)
+    k3 = InvCompose(scaled_inverse_tables(t), p.moduli, p.q_total, cuda)
+    xs = [i64(residues(rng, p.moduli, (p.phi, 2 * p.n * p.n + 3)))]
+    if preset != "ref":
+        xs.append(_near_half_inputs(p, t, seed=64)[0])
+    keys = ("inv_compose", "inv_compose_stage", "inv_compose_split", "stage",
+            "stage_split")
+    for x in xs:
+        x = x.to(cuda)
+        before = {k: _backend.LAUNCHES[k] for k in keys}
+        got = k3(x)
+        torch.cuda.synchronize()
+        assert {k: _backend.LAUNCHES[k] - before[k] for k in keys} == {
+            "inv_compose": 1, "inv_compose_stage": 1, "inv_compose_split": 1,
+            "stage": 0, "stage_split": 0}
+        want = k3.plain(x)
+        assert torch.equal(got[0].cpu(), want[0].cpu())
+        assert torch.equal(got[1].cpu(), want[1].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["wdft-ref", "sigma-ref", "edge-K64",
+                                  "edge-K512"])
+def test_cuda_fp_cmatmul_path_shapes_and_edges(cuda, case):
+    """K4 through ExactComplexMatmul's table planes at the ref roundtrip's
+    two shapes, the W-DFT [512, 512] @ [512, 4096] and the sigma sandwich
+    [64, 64] @ [64, 32768], and at the domain's edges (data +-2^37, tables
+    at the budget, K = 64 and 512, M = 200): equal to fp_cmatmul_plain, one
+    split pass and one GEMM a call."""
+    rng = np.random.default_rng(63)
+    if case.endswith("ref"):
+        tables = build_tables(get_params("ref"))
+        t, M = ((tables.wdft, 4096) if case == "wdft-ref"
+                else (tables.enc_v_inv, 32768))
+        xr, xi = (rng.integers(-(1 << 37), (1 << 37) + 1, (t.shape[1], M))
+                  for _ in range(2))
+        xr[0, :7] = 1 << 37
+        xi[1, :7] = -(1 << 37)
+    else:
+        t, xr, xi = _k4_case(case, rng)
+    tm = tfp.ExactComplexMatmul(t, cuda)
+    xr, xi = torch.from_numpy(xr).to(cuda), torch.from_numpy(xi).to(cuda)
+    split = _backend.LAUNCHES["fp_cmatmul_split"]
+    got = _launched("fp_cmatmul", lambda: tm._matmul(xr, xi))
+    assert _backend.LAUNCHES["fp_cmatmul_split"] == split + 1
+    want = tfp.fp_cmatmul_plain(tm.tr, tm.ti, xr, xi)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_fp_cmatmul_refuses_long_contractions(cuda):
+    """Past K = 13,107 an s32 diagonal sum could overflow: the wrapper
+    raises before any launch."""
+    tr = torch.zeros((1, 13108), dtype=torch.int64, device=cuda)
+    x = torch.zeros((13108, 8), dtype=torch.int64, device=cuda)
+    before = _backend.LAUNCHES["fp_cmatmul"]
+    with pytest.raises(ValueError, match="exceeds"):
+        tfp.fp_cmatmul_kernel(tr, tr, x, x)
+    assert _backend.LAUNCHES["fp_cmatmul"] == before
 
 
 # (bits, N, negacyclic, limbs, batch, fill): m = sqrt(N) from 2 to 4096; the
