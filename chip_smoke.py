@@ -39,18 +39,21 @@ and read just after:
 
 Every kernel is held bit for bit against its plain PyTorch version at the
 shapes its path gives it, and both are timed, with the least time the card
-could take for the same work (bytes at 3.35 TB/s; K1, K10a and K3's u8
-digit products and K4's s8 digit products by the JAX kernel's Karatsuba
-method at the int8 tensor-core rate of 1,979 TOP/s; the 64 x 64-bit
-products of K2, K6 and K7 as 32-bit multiply-adds, counted from the SASS of
+could take for the same work (bytes at 3.35 TB/s; K1, K10a, K2, K3 and
+K7's u8 digit products and K4's s8 digit products by the JAX kernel's
+Karatsuba method at the int8 tensor-core rate of 1,979 TOP/s; the 64 x
+64-bit products of K6 as 32-bit multiply-adds, counted from the SASS of
 K6's inner loop, at the card's IMAD rate of 64 a clock on each SM; K5's
 Shoup products at the IMADs a product of its register kernel's SASS, per
 word width, its index and address IMADs left out) and, where one PyTorch
 call computes the same function, that call's time (K11's copy:
-Tensor.copy_ on the same buffers, in turns).  For each K1, K3, K4, K10a
-and K5 row a [bound] line logs the byte and operation bounds apart and the
-IMAD bound of the earlier 64-bit route; K3's parts (split, GEMM, compose)
-and K4's split pass are timed apart on [kernel] lines.
+Tensor.copy_ on the same buffers, in turns).  For each K1, K2, K3, K4,
+K5, K7 and K10a row a [bound] line logs the byte and operation bounds
+apart and the IMAD bound of the earlier 64-bit route; K3's parts (split,
+GEMM, compose) and K4's split pass are timed apart on [kernel] lines, and
+so is K2's function as two launches (K10a's twiddle form forward with s
+as the twiddle, then K1's inverse), the yardstick of its fusion.  K2's
+rows carry its launches on every path that runs it (`launches_by_path`).
 Fails (nonzero exit, no result line) without a CUDA device, on a build or
 launch error, on any disagreement, or when a path's check fails.
 
@@ -177,6 +180,31 @@ def stage_work(stage, data, twiddle=False) -> dict:
         work["products"] = L * outs
     return {"work": work,
             "imad_products": stage_products(stage, data) + L * outs * twiddle}
+
+
+def ntt_mul_ntt_work(k2, a_rows) -> dict:
+    """Operations of one K2 call by the digit-plane method: the function's
+    u8 digit products, two transforms of 2 R n (d_l n) d_l a limb (the
+    kernel's 8 byte slots a term do 8 / d_l of that: the design's cost,
+    not counted).  "imad_products" is the earlier 64-bit route's R (2 n^2
+    + n) a limb."""
+    from matrix_fhe_tpu_torch.ops.cuda_ntt import digit_count
+    L, R, n = a_rows.shape
+    int8 = sum(2 * 2 * R * n * d * n * d
+               for d in map(digit_count, k2.moduli))
+    return {"work": {"int8": int8}, "imad_products": L * R * (2 * n * n + n)}
+
+
+def gemm2x2_work(gemm, u) -> dict:
+    """Operations of one K7 call by the digit-plane method: four products
+    of 2 W m^2 (d_l y) d_l u8 digit products a limb (the d_l Shoup
+    products an element of V that pre-reduce it are not counted).
+    "imad_products" is the earlier 64-bit route's 4 L W y m^2."""
+    from matrix_fhe_tpu_torch.ops.cuda_ntt import digit_count
+    L, W, y, m = u.shape
+    int8 = sum(4 * 2 * W * m * m * d * y * d
+               for d in map(digit_count, gemm.moduli))
+    return {"work": {"int8": int8}, "imad_products": 4 * L * W * y * m * m}
 
 
 def fp_work(fp, m: int) -> dict:
@@ -334,7 +362,8 @@ def imads_per_product(funcs):
     its shared-memory loads, whatever the compiler's unrolling: each k-step
     reads 16 residues of 8 bytes (4 each of Ar, Ai, Br, Bi) and makes
     4 x 4 x 4 = 64 products, so the loop's products are its LDS bytes / 2.
-    K2, K6 and K7 share the product helper (csrc/modarith.cuh: mac_u128).
+    The IMAD bounds of K2's and K7's earlier 64-bit routes, which shared
+    this product helper (csrc/modarith.cuh: mac_u128), are counted with it.
     Returns (IMADs per product, IMADs, products)."""
     body = next(f for name, f in funcs.items() if "cgemm_kernel" in name)
     insts, loops = _sass_loops(body.splitlines())
@@ -364,14 +393,20 @@ def imads_per_product(funcs):
 
 def tensor_core_ops(funcs, kernel: str) -> int:
     """Warpgroup tensor-core instructions (IGMMA) in a kernel whose
-    products run on the int8 tensor cores (K1's stage_kernel, K4's
-    fp_cmatmul_kernel); it must have some."""
-    body = next(f for name, f in funcs.items() if kernel in name)
-    insts, _ = _sass_loops(body.splitlines())
-    n = sum(1 for _, t in insts if "GMMA" in _opcode(t))
-    if n == 0:
-        raise AssertionError(f"{kernel} has no wgmma instruction")
-    return n
+    products run on the int8 tensor cores (K1's stage_kernel, K2's
+    ntt_mul_ntt_kernel, K4's fp_cmatmul_kernel, K7's gemm2x2_kernel),
+    summed over its instantiations; each must have some."""
+    bodies = [f for name, f in funcs.items() if kernel in name]
+    if not bodies:
+        raise AssertionError(f"no function {kernel} in the library")
+    total = 0
+    for body in bodies:
+        insts, _ = _sass_loops(body.splitlines())
+        n = sum(1 for _, t in insts if "GMMA" in _opcode(t))
+        if n == 0:
+            raise AssertionError(f"{kernel} has no wgmma instruction")
+        total += n
+    return total
 
 
 def kernel_checks(ctx, gen):
@@ -402,8 +437,21 @@ def kernel_checks(ctx, gen):
         "matrix_fhe_tpu_torch/csrc/ntt_mul_ntt.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1851",
         lambda: k2.kernel(a_rows, s_mont), lambda: k2.plain(a_rows, s_mont),
-        [k2.fwd, k2.inv, a_rows, s_mont],
-        {"products": L * W * n * (2 * n * n + n)}))
+        [k2.fwd, k2.inv, a_rows, s_mont], **ntt_mul_ntt_work(k2, a_rows)))
+    # the yardstick of the fusion: the same function as two launches, K10a's
+    # twiddle form forward with s as the twiddle, then K1's inverse (the
+    # spectrum written to and read from device memory)
+    s_rows = s_mont.repeat_interleave(n, 1)
+
+    def two():
+        return xntt._inv.kernel(xntt._fwd.kernel(a_rows, s_rows))
+
+    if not torch.equal(two(), k2.kernel(a_rows, s_mont)):
+        raise AssertionError("K2 differs from K10a-tw forward then K1 inverse")
+    log(f"[kernel] ntt_mul_ntt (K2) as two launches (K10a-tw forward x s, "
+        f"K1 inverse): {cuda_ms(two, 5):.3f} ms, the fused kernel "
+        f"{rows[-1]['ms']:.3f} ms")
+    del s_rows
     x_ev = random_residues(p.moduli, (W, 2 * n * n), gen)
     k3 = wt._inv_compose
     rows.append(check_kernel(
@@ -588,7 +636,7 @@ def matmul_path():
                "ref_matmul_decrypt_decode_ms": decode_ms,
                "ref_matmul_max_memory_allocated": peak,
                "ref_matmul_memory_above_held": peak - held}
-    return [row], summary
+    return [row], summary, launches
 
 
 def gl2_path():
@@ -689,7 +737,7 @@ def gl2_path():
         "matrix_fhe_tpu_torch/csrc/gemm2x2.cu",
         "matrix_fhe_tpu/ops/pallas_cgemm.py:266",
         lambda: hm._gemm.kernel(*ops), lambda: hm._gemm.plain(*ops),
-        ops, {"products": 4 * L * W * n * (2 * n) ** 2})]
+        ops, **gemm2x2_work(hm._gemm, ops[0]))]
     del ops, sy_b, sy_a, x_b, x_a
     k2 = ctx.xntt._mul_s
     a_rows = ctX.a.reshape(len(p.moduli), -1, 2 * n)
@@ -699,8 +747,7 @@ def gl2_path():
         "matrix_fhe_tpu_torch/csrc/ntt_mul_ntt.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1851",
         lambda: k2.kernel(a_rows, sk.s_mont), lambda: k2.plain(a_rows, sk.s_mont),
-        [k2.fwd, k2.inv, a_rows, sk.s_mont],
-        {"products": a_rows.shape[0] * a_rows.shape[1] * (2 * m * m + m)}))
+        [k2.fwd, k2.inv, a_rows, sk.s_mont], **ntt_mul_ntt_work(k2, a_rows)))
     del a_rows
     # K1 over the 14-limb QP basis (55-bit P prime included) as relinearize
     # and keygen run it: the W-CRT of a [W, 2n, 2n] digit, and one 2n-point
@@ -767,7 +814,7 @@ def gl2_path():
                "ref_gl2_max_memory_allocated": peak,
                "ref_gl2_memory_above_held": peak - held}
     summary.update({f"ref_gl2_{k}_ms": v for k, v in phases.items()})
-    return rows, summary
+    return rows, summary, launches
 
 
 def leveled_path():
@@ -1154,7 +1201,10 @@ def main() -> int:
         f"a Shoup product on 64-bit words, {k5_imads[32]:.2f} on 32-bit "
         f"words; "
         f"K1 stage_kernel: {tensor_core_ops(funcs, 'stage_kernel')} IGMMA "
-        f"(u8 wgmma) instructions, K4 fp_cmatmul_kernel: "
+        f"(u8 wgmma) instructions, K2 ntt_mul_ntt_kernel: "
+        f"{tensor_core_ops(funcs, 'ntt_mul_ntt_kernel')} (u8), K7 "
+        f"gemm2x2_kernel: {tensor_core_ops(funcs, 'gemm2x2_kernel')} (u8), "
+        f"K4 fp_cmatmul_kernel: "
         f"{tensor_core_ops(funcs, 'fp_cmatmul_kernel')} (s8) (cuobjdump -sass)")
     t_path = time.perf_counter()
 
@@ -1270,7 +1320,7 @@ def main() -> int:
 
     # -- path 3: the homomorphic matrix product at ref (K6) -----------------
     t_path = time.perf_counter()
-    mm_rows, mm_summary = matmul_path()
+    mm_rows, mm_summary, mm_launches = matmul_path()
     rows += mm_rows
     summary.update(mm_summary)
     torch.cuda.empty_cache()
@@ -1278,7 +1328,7 @@ def main() -> int:
 
     # -- path 4: the gl2 ciphertext GEMM at ref (K7, K2 at 2n = 128) --------
     t_path = time.perf_counter()
-    gl2_rows, gl2_summary = gl2_path()
+    gl2_rows, gl2_summary, gl2_launches = gl2_path()
     rows += gl2_rows
     summary.update(gl2_summary)
     torch.cuda.empty_cache()          # path 4's 15 GB of switch keys go
@@ -1303,6 +1353,15 @@ def main() -> int:
     for row in rows:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its path")
+    # K2 runs in every encrypt and decrypt: its launches on each path that
+    # runs it (paths 1, 3 and 5 at n = 64, path 4 at the gl2 ring's 128)
+    k2_by_path = {path: counts.get("ntt_mul_ntt", 0) for path, counts in (
+        ("1_roundtrip", launches), ("3_matmul", mm_launches),
+        ("4_gl2", gl2_launches), ("5_keyswitch", ks_launches))}
+    log(f"[launches] ntt_mul_ntt (K2) by path: {k2_by_path}")
+    for row in rows:
+        if row["name"].startswith("ntt_mul_ntt"):
+            row["launches_by_path"] = k2_by_path
     log(f"[bound] IMAD peak {IMAD_PER_S:.4e} /s (64 a clock on each of 132 "
         f"SMs at 1.98 GHz), {imads:.2f} IMADs per 64-bit product; K11 addmul "
         f"measured {probe_summary['k11_addmul_steps_per_s']:.4e} steps/s")

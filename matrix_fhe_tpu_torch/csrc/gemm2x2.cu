@@ -1,4 +1,5 @@
-// K7: the gl2 ciphertext GEMM's tensor step, four modular GEMMs in one launch.
+// K7: the gl2 ciphertext GEMM's tensor step, four modular GEMMs in one
+// launch, as u8 digit-plane GEMMs on the int8 tensor cores.
 //
 // Replaces matrix_fhe_tpu/ops/pallas_cgemm.py:_gemm2x2_kernel (SlicedGemm2x2):
 //   E_ij[l, w, a, b] = scale * sum_y U_i[l, w, y, a] * V_j[l, w, y, b] mod q_l
@@ -6,121 +7,360 @@
 // over the second-to-last axis of both), q_l < 2^56, outputs [4, L, W, m, m]
 // in the order E00 = U1 V1, E01 = U1 V2, E10 = U2 V1, E11 = U2 V2.
 //
-// Bound on the H100: 4 m^2 y 64 x 64 -> 128-bit integer multiply-adds per
-// (limb, lane) on the integer pipes; at ref (y = 64, m = 128, 11 x 512
-// lanes) 23.6 G of them against ~1.5 GB of traffic.  The TPU builds the
-// products from int8 digit planes, pre-reduces V per digit and folds with
-// R = 2^28 constants; none of that carries over.  What does is the sharing:
-// one block loads tiles of U1, U2, V1 and V2 once and every loaded residue
-// feeds both products it belongs to.  Each output keeps a lazy unsigned
-// 128-bit sum (y <= 2^16 products < 2^112) reduced once, and `scale` rides
-// in the reduction's last Montgomery constant (consts[l][2] = scale * 2^128
-// mod q).  Tiles: 16-deep slices of a 64-wide U tile and a 32-wide V tile in
-// shared memory, 4 x 2 outputs of each of the four products per thread, one
-// block per (64 x 32 output tile, limb, lane).
+// The method is K1's (csrc/stage.cu) with V_j in the role of the table,
+// pre-reduced inside the kernel.  Limb l has d = ceil(bits(q) / 8) digits;
+// U = sum_c U_c 2^(8 c), and for each data digit c < d the kernel builds
+// V^(c) = V w_c mod q, w_c = scale 2^(8 c) 2^64 mod q (one Shoup product
+// by the constant pair (w_c, floor(w_c 2^64 / q)) a digit and element: d
+// products an element of V against the 2 m products it feeds) and cuts it
+// into u8 planes V^(c)_j.  Then
+//
+//   diag_j[a, b] = sum_c sum_y U_c[y, a] V^(c)_j[y, b]    (u8 GEMM, s32 sums)
+//   E[a, b]      = sum_j diag_j 2^(8 j) 2^-64 mod q       (one REDC an output)
+//
+// which is canonical with `scale` folded in.  int8 wgmma wants both operands
+// K-major, so U's digits are transposed into the A operand (rows a,
+// contraction index c * 64 + y) and V's planes into the B operand (rows
+// j * 32 + b, N = 32 d, the same contraction index), both with the 128-byte
+// swizzle, by the block's threads from int64 loads (8 y values a thread,
+// neighbouring threads on neighbouring a or b, so the loads are whole
+// 256-byte runs; an 8 x 8 byte transpose in 32 byte permutes gives the 8
+// bytes of one digit as one 8-byte store); no digit plane goes to device
+// memory.
+//
+// Block: one (limb, lane) and 128 rows a of E, two warpgroups; warpgroup i
+// multiplies U_i's digit tiles, 64 rows a wgmma, so each V_j tile the block
+// builds feeds both products it belongs to (E_1j and E_2j) on all 128 rows,
+// and each U_i tile, built once while y <= 64, feeds E_i1 and E_i2 over
+// every 32-column tile of b.  The contraction runs in chunks of 64 terms
+// (d * 64 digit rows); the s32 sums are flushed every 64 chunks (4,096
+// terms, at most 28,672 digit rows: 255^2 x 28,672 < 2^31), reduced and
+// summed mod q into E, so y may reach 2^16 (every chunk where a warpgroup
+// holds two row groups).  Shared memory at d digits, KB = 64 d rounded up
+// to 128 bytes: U1 and U2 tiles of 128 rows, 2 x 128 x KB, and the V tile
+// 32 d x KB: 168 KB at the ref chain's d = 6 (+ 1 KB alignment).  At d = 7
+// that would be 240 KB, so a 55-bit limb's block holds 64 rows of U at a
+// time and builds each V tile twice, once for each half (176 KB).  Shared
+// memory is sized by the launch's largest need.  Each thread holds one
+// product's 16 d s32 sums (112 at d = 7) and the next V tile's 8 elements,
+// loaded before a step's products so that their latency hides behind the
+// tensor work and the epilogue (254 registers, no spill).
+//
+// Bound on the H100: at ref (y = 64, m = 128, [11, 512]) the bytes, U1, U2,
+// V1, V2 read (1.476 GB) and E written (2.953 GB), 1.322 ms at 3.35 TB/s;
+// the function's u8 digit products take 0.621 ms at 1,979 TOP/s.  E is
+// written once, two neighbouring outputs a 16-byte store.
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "modarith.cuh"
+#include "wgmma8.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 32, BK = 16, TM = 4, TN = 2, THREADS = 256;
-static_assert(BM == 16 * TM && BN == 16 * TN, "16 x 16 threads cover the tile");
+constexpr int THREADS = 256;       // two warpgroups: U1 and U2
+constexpr int BMA = 128;           // rows a of E a block
+constexpr int BN = 32;             // columns b a tile; N = 32 d
+constexpr int BK = 128;            // contraction bytes a tile (one swizzle row)
+constexpr int YC = 64;             // contraction terms a chunk
+constexpr int DMAX = 7;
+constexpr int FLUSH_CHUNKS = 64;   // 4,096 terms, <= 28,672 digit rows
+constexpr int A_TILE = 64 * BK;    // 64 rows of a K-tile: one wgmma's A
+constexpr size_t SMEM_LIMIT = 232448;
+static_assert(255LL * 255 * FLUSH_CHUNKS * YC * DMAX < (1LL << 31),
+              "an s32 sum of one flush's u8 products stays exact");
+static_assert(THREADS == BN * YC / 8, "one V unit (8 terms, one b) a thread");
 
-__global__ void __launch_bounds__(THREADS)
-gemm2x2_kernel(const int64_t* __restrict__ U1, const int64_t* __restrict__ U2,
-               const int64_t* __restrict__ V1, const int64_t* __restrict__ V2,
-               const int64_t* __restrict__ consts, int64_t* __restrict__ E,
-               int L, int W, int y, int m) {
-  __shared__ uint64_t U1s[BK][BM], U2s[BK][BM], V1s[BK][BN], V2s[BK][BN];
-  const int lw = blockIdx.z, l = lw / W;
-  const long long in_base = static_cast<long long>(lw) * y * m;
-  const long long out_base = static_cast<long long>(lw) * m * m;
-  const long long plane = static_cast<long long>(L) * W * m * m;
-  const mfhe::LimbConsts c = mfhe::load_consts(consts, l);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int a0 = blockIdx.y * BM, b0 = blockIdx.x * BN;
-  const uint64_t* u1 = reinterpret_cast<const uint64_t*>(U1) + in_base;
-  const uint64_t* u2 = reinterpret_cast<const uint64_t*>(U2) + in_base;
-  const uint64_t* v1 = reinterpret_cast<const uint64_t*>(V1) + in_base;
-  const uint64_t* v2 = reinterpret_cast<const uint64_t*>(V2) + in_base;
+__host__ __device__ constexpr int k_tiles(int d) { return (d * YC + BK - 1) / BK; }
+__host__ __device__ constexpr int b_tile(int d) { return BN * d * BK; }
+// rows of U1 and of U2 held at a time: all 128 of the block's, but 64 at
+// d = 7 (128 would take 240 KB)
+__host__ __device__ constexpr int rows_held(int d) { return d <= 6 ? 128 : 64; }
+__host__ __device__ constexpr size_t smem_need(int d) {
+  return static_cast<size_t>(k_tiles(d)) *
+         (2 * rows_held(d) * BK + b_tile(d));
+}
+constexpr size_t smem_bytes(int dmax) {   // the most any limb's d needs
+  size_t most = 0;
+  for (int d = 1; d <= dmax; ++d) most = smem_need(d) > most ? smem_need(d) : most;
+  return most + 1024;                     // + 1024 B alignment
+}
+static_assert(smem_bytes(DMAX) <= SMEM_LIMIT, "one block's shared memory");
 
-  // hi / lo words of the four products' sums, [product][row][column]
-  uint64_t hi[4][TM][TN], lo[4][TM][TN];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) hi[p][i][j] = lo[p][i][j] = 0;
+struct Args {
+  const uint64_t* u[2];
+  const uint64_t* v[2];
+  const int64_t* consts;   // [L, 3]: q, -q^-1 mod 2^64, unused
+  const uint64_t* vc;      // [L, 8, 2]: w_c = scale 2^(8 c) 2^64 mod q and
+                           // floor(w_c 2^64 / q)
+  uint64_t* E;             // [4, L, W, m, m]
+  int L, W, y, m;
+};
 
-  for (int k0 = 0; k0 < y; k0 += BK) {
-    // the output index is the last axis of both operands: neighbouring
-    // threads read neighbouring a (b)
-    for (int e = threadIdx.x; e < BK * BM; e += THREADS) {
-      const int kk = e / BM, aa = e % BM, gk = k0 + kk, ga = a0 + aa;
-      const bool ok = gk < y && ga < m;
-      const long long o = static_cast<long long>(gk) * m + ga;
-      U1s[kk][aa] = ok ? u1[o] : 0;
-      U2s[kk][aa] = ok ? u2[o] : 0;
+using mfhe::fence_regs;
+using mfhe::smem_desc;
+
+// Shared-memory address of the 8 bytes at contraction byte kb (a multiple
+// of 8) of row r in K-tiled operand `base`, K-tiles `tile` bytes apart.
+__device__ __forceinline__ uint32_t swz(uint32_t base, int tile, int r, int kb) {
+  return base + (kb / BK) * tile + r * BK +
+         ((((kb % BK) >> 4) ^ (r & 7)) << 4) + (kb & 8);
+}
+
+__device__ __forceinline__ void st_shared8(uint32_t addr, uint64_t v) {
+  asm volatile("st.shared.u64 [%0], %1;\n" ::"r"(addr), "l"(v));
+}
+
+// w[j] = byte j of x[0], ..., x[7], little-endian: an 8 x 8 byte
+// transpose as four 4 x 4 ones, 8 byte permutes each.
+__device__ __forceinline__ void byte_planes(const uint64_t (&x)[8], uint64_t (&w)[8]) {
+  uint32_t r[2][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)          // values 4 h .. 4 h + 3
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {   // their bytes 4 part .. + 3
+      const uint32_t a = static_cast<uint32_t>(x[4 * h] >> (32 * part));
+      const uint32_t b = static_cast<uint32_t>(x[4 * h + 1] >> (32 * part));
+      const uint32_t c = static_cast<uint32_t>(x[4 * h + 2] >> (32 * part));
+      const uint32_t d = static_cast<uint32_t>(x[4 * h + 3] >> (32 * part));
+      const uint32_t t0 = __byte_perm(a, b, 0x5140), t1 = __byte_perm(c, d, 0x5140);
+      const uint32_t t2 = __byte_perm(a, b, 0x7362), t3 = __byte_perm(c, d, 0x7362);
+      r[h][4 * part] = __byte_perm(t0, t1, 0x5410);
+      r[h][4 * part + 1] = __byte_perm(t0, t1, 0x7632);
+      r[h][4 * part + 2] = __byte_perm(t2, t3, 0x5410);
+      r[h][4 * part + 3] = __byte_perm(t2, t3, 0x7632);
     }
-    for (int e = threadIdx.x; e < BK * BN; e += THREADS) {
-      const int kk = e / BN, bb = e % BN, gk = k0 + kk, gb = b0 + bb;
-      const bool ok = gk < y && gb < m;
-      const long long o = static_cast<long long>(gk) * m + gb;
-      V1s[kk][bb] = ok ? v1[o] : 0;
-      V2s[kk][bb] = ok ? v2[o] : 0;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      uint64_t x1[TM], x2[TM], z1[TN], z2[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        x1[i] = U1s[kk][ty + 16 * i];
-        x2[i] = U2s[kk][ty + 16 * i];
-      }
+  for (int j = 0; j < 8; ++j)
+    w[j] = r[0][j] | (static_cast<uint64_t>(r[1][j]) << 32);
+}
+
+// x w mod q by Shoup's method, wp = floor(w 2^64 / q), w < q < 2^56.
+__device__ __forceinline__ uint64_t shoup_mul(uint64_t x, uint64_t w, uint64_t wp,
+                                              uint64_t q) {
+  const uint64_t r = x * w - __umul64hi(x, wp) * q;   // in [0, 2 q)
+  return r >= q ? r - q : r;
+}
+
+// U1's and U2's digits of contraction chunk ch on rows a0 .. a0 + R - 1,
+// transposed: row group g (64 rows) of U_i is K-tiles at abase + (G i + g)
+// KT A_TILE, whose row r, byte c * 64 + y' holds byte c of U_i[y0 + y',
+// a0 + 64 g + r] (zero past y and m).
+template <int D>
+__device__ __forceinline__ void build_u(const Args& p, uint32_t abase, long long lw,
+                                       int a0, int ch) {
+  constexpr int KT = k_tiles(D), R = rows_held(D), G = R / 64;
+#pragma unroll 2
+  for (int i = threadIdx.x; i < 2 * R * (YC / 8); i += THREADS) {
+    const int which = i / (R * (YC / 8)), r = i % (R * (YC / 8));
+    const int aa = r % R, g = r / R, a = a0 + aa, y0 = ch * YC + 8 * g;
+    const uint64_t* src = p.u[which] + lw * p.y * p.m + a;
+    uint64_t x[8];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        z1[j] = V1s[kk][tx + 16 * j];
-        z2[j] = V2s[kk][tx + 16 * j];
-      }
+    for (int e = 0; e < 8; ++e)
+      x[e] = (a < p.m && y0 + e < p.y) ? src[static_cast<long long>(y0 + e) * p.m] : 0;
+    const uint32_t base = abase + (G * which + aa / 64) * KT * A_TILE;
+    uint64_t w[8];
+    byte_planes(x, w);
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          mfhe::mac_u128(hi[0][i][j], lo[0][i][j], x1[i], z1[j]);
-          mfhe::mac_u128(hi[1][i][j], lo[1][i][j], x1[i], z2[j]);
-          mfhe::mac_u128(hi[2][i][j], lo[2][i][j], x2[i], z1[j]);
-          mfhe::mac_u128(hi[3][i][j], lo[3][i][j], x2[i], z2[j]);
-        }
-    }
-    __syncthreads();
+    for (int c = 0; c < D; ++c)
+      st_shared8(swz(base, A_TILE, aa % 64, c * YC + 8 * g), w[c]);
   }
+}
 
+// This thread's 8 elements of V_j's tile at chunk ch, columns b0 ..
+// b0 + 31: V_j[y0 + 8 g + e, b0 + b] (zero past y and m), b = tid % 32,
+// g = tid / 32.
+__device__ __forceinline__ void load_v(const Args& p, long long lw, int j, int b0,
+                                       int ch, uint64_t (&x)[8]) {
+  const int bb = threadIdx.x % BN, g = threadIdx.x / BN, b = b0 + bb;
+  const int y0 = ch * YC + 8 * g;
+  const uint64_t* src = p.v[j] + lw * p.y * p.m + b;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int ga = a0 + ty + 16 * i;
-    if (ga >= m) continue;
+  for (int e = 0; e < 8; ++e)
+    x[e] = (b < p.m && y0 + e < p.y) ? src[static_cast<long long>(y0 + e) * p.m] : 0;
+}
+
+// V_j's planes of that tile from this thread's elements x: B row
+// pj * 32 + b, byte c * 64 + y' holds byte pj of V^(c)[y0 + y', b0 + b].
+template <int D>
+__device__ __forceinline__ void build_v(const Args& p, const mfhe::LimbConsts& c,
+                                        uint32_t bbase, int l,
+                                        const uint64_t (&x)[8]) {
+  const int bb = threadIdx.x % BN, g = threadIdx.x / BN;
+#pragma unroll 1
+  for (int cd = 0; cd < D; ++cd) {
+    const uint64_t k = p.vc[2 * (8 * l + cd)], kp = p.vc[2 * (8 * l + cd) + 1];
+    uint64_t xc[8], w[8];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gb = b0 + tx + 16 * j;
-      if (gb >= m) continue;
-      const long long o = out_base + static_cast<long long>(ga) * m + gb;
+    for (int e = 0; e < 8; ++e) xc[e] = shoup_mul(x[e], k, kp, c.q);
+    byte_planes(xc, w);
 #pragma unroll
-      for (int p = 0; p < 4; ++p)
-        E[p * plane + o] = static_cast<int64_t>(mfhe::reduce128(hi[p][i][j], lo[p][i][j], c));
+    for (int pj = 0; pj < D; ++pj)
+      st_shared8(swz(bbase, b_tile(D), pj * BN + bb, cd * YC + 8 * g), w[pj]);
+  }
+}
+
+// Fold and REDC this thread's 16 outputs of E_(wg, j) at columns b0 ..
+// b0 + 31; write them (first flush) or add them mod q to what an earlier
+// flush wrote, two neighbouring columns a 16-byte store where m is even.
+template <int D>
+__device__ __forceinline__ void epilogue(const int (&acc)[16 * D], const Args& p,
+                                         const mfhe::LimbConsts& c, long long lw,
+                                         int a0, int b0, int prod, bool first) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int abase = a0 + ((tid >> 5) & 3) * 16 + (lane >> 2);   // a0: 64 rows
+  const int bbase = b0 + 2 * (lane & 3);
+  uint64_t* out = p.E + (static_cast<long long>(prod) * p.L * p.W + lw) * p.m * p.m;
+  const bool pairs = (p.m & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int a = abase + 8 * h;
+    if (a >= p.m) continue;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int b = bbase + 8 * t;
+      if (b >= p.m) continue;
+      uint64_t v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint64_t hi, lo;
+        mfhe::fold<D>(acc, 4 * t + 2 * h + e, hi, lo);
+        v[e] = mfhe::mont_redc(hi, lo, c);
+      }
+      uint64_t* o = out + static_cast<long long>(a) * p.m + b;
+      if (pairs) {                       // b even, b + 1 < m
+        ulonglong2* dst = reinterpret_cast<ulonglong2*>(o);
+        if (!first) {
+          const ulonglong2 prev = *dst;
+          v[0] += prev.x;
+          v[1] += prev.y;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (v[e] >= c.q) v[e] -= c.q;
+        }
+        *dst = make_ulonglong2(v[0], v[1]);
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (b + e >= p.m) continue;
+        if (!first) {
+          v[e] += o[e];
+          if (v[e] >= c.q) v[e] -= c.q;
+        }
+        o[e] = v[e];
+      }
     }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void body(const Args& p, uint32_t sbase,
+                                     const mfhe::LimbConsts& c, long long lw,
+                                     int l) {
+  constexpr int KT = k_tiles(D), R = rows_held(D), G = R / 64;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const uint32_t abase = sbase, bbase = sbase + 2 * R * KT * BK;
+  // bytes no build writes (past d * 64 in the last K-tile) stay zero
+  for (int i = tid; i < static_cast<int>(smem_need(D) / 16); i += THREADS)
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(sbase + 16 * i),
+                 "r"(0), "r"(0), "r"(0), "r"(0)
+                 : "memory");
+  __syncthreads();
+  const int nch = (p.y + YC - 1) / YC, nb = (p.m + BN - 1) / BN;
+  // with two row groups a warpgroup keeps no sums across chunks: each
+  // chunk is reduced and added into E
+  const int flush = G > 1 ? 1 : FLUSH_CHUNKS;
+
+  int acc[16 * D];
+#pragma unroll
+  for (int i = 0; i < 16 * D; ++i) acc[i] = 0;
+
+  // steps s = (cb, j, ch), chunk fastest: V_j's tile of columns cb * 32
+  // .. + 31 at chunk ch; the next step's V elements load while this
+  // step's products and epilogue run
+  const int steps = nb * 2 * nch;
+  const int a_end = min(p.m, static_cast<int>(blockIdx.y + 1) * BMA);
+  for (int a0 = static_cast<int>(blockIdx.y) * BMA; a0 < a_end; a0 += R) {
+    uint64_t xv[8];
+    load_v(p, lw, 0, 0, 0, xv);
+    for (int st = 0; st < steps; ++st) {
+      const int cb = st / (2 * nch), j = st / nch % 2, ch = st % nch;
+      if (nch > 1 || st == 0) build_u<D>(p, abase, lw, a0, ch);
+      build_v<D>(p, c, bbase, l, xv);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (st + 1 < steps)
+        load_v(p, lw, (st + 1) / nch % 2, (st + 1) / (2 * nch) * BN,
+               (st + 1) % nch, xv);
+      const bool fresh = ch % flush == 0;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const uint32_t sa = abase + (G * wg + g) * KT * A_TILE;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int t = 0; t < KT; ++t)
+#pragma unroll
+          for (int kk = 0; kk < BK / 32; ++kk)
+            mfhe::wgmma8<D, false>(
+                acc, smem_desc(sa + t * A_TILE + 32 * kk),
+                smem_desc(bbase + t * b_tile(D) + 32 * kk),
+                (fresh && t == 0 && kk == 0) ? 0 : 1);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_regs(acc);
+        if ((ch + 1) % flush == 0 || ch == nch - 1)
+          epilogue<D>(acc, p, c, lw, a0 + 64 * g, cb * BN, 2 * wg + j,
+                      ch < flush);
+      }
+      __syncthreads();               // both warpgroups' products read the tiles
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) gemm2x2_kernel(const Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sbase =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
+  const long long lw = blockIdx.x;
+  const int l = static_cast<int>(lw / p.W);
+  const mfhe::LimbConsts c = mfhe::load_consts(p.consts, l);
+  switch (mfhe::digits_of(c.q)) {
+    case 1: body<1>(p, sbase, c, lw, l); break;
+    case 2: body<2>(p, sbase, c, lw, l); break;
+    case 3: body<3>(p, sbase, c, lw, l); break;
+    case 4: body<4>(p, sbase, c, lw, l); break;
+    case 5: body<5>(p, sbase, c, lw, l); break;
+    case 6: body<6>(p, sbase, c, lw, l); break;
+    default: body<7>(p, sbase, c, lw, l); break;
   }
 }
 
 }  // namespace
 
+// u1, u2, v1, v2: [L, W, y, m] canonical int64; e: [4, L, W, m, m], 16-byte
+// aligned; consts [L, 3] (q, -q^-1 mod 2^64, ...); vc [L, 8, 2] with
+// vc[l][c] = (w, floor(w 2^64 / q_l)), w = scale 2^(8 c) 2^64 mod q_l, the
+// Shoup pair of digit c's pre-reduction; dmax the largest digit count of
+// the limbs (it sizes shared memory).  y <= 65536.
 extern "C" int mf_gemm2x2(const int64_t* u1, const int64_t* u2, const int64_t* v1,
-                          const int64_t* v2, const int64_t* consts, int64_t* e,
-                          int L, int W, int y, int m, void* stream) {
-  dim3 grid((m + BN - 1) / BN, (m + BM - 1) / BM, L * W);
-  gemm2x2_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      u1, u2, v1, v2, consts, e, L, W, y, m);
+                          const int64_t* v2, const int64_t* consts,
+                          const int64_t* vc, int64_t* e, int L, int W, int y,
+                          int m, int dmax, void* stream) {
+  if (dmax < 1 || dmax > DMAX || y < 1 || y > (1 << 16) || m < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = smem_bytes(dmax);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gemm2x2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const Args p{{reinterpret_cast<const uint64_t*>(u1), reinterpret_cast<const uint64_t*>(u2)},
+               {reinterpret_cast<const uint64_t*>(v1), reinterpret_cast<const uint64_t*>(v2)},
+               consts, reinterpret_cast<const uint64_t*>(vc),
+               reinterpret_cast<uint64_t*>(e), L, W, y, m};
+  dim3 grid(static_cast<unsigned>(L) * W, (m + BMA - 1) / BMA);
+  gemm2x2_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

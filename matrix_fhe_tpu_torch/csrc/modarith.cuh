@@ -16,6 +16,11 @@ struct LimbConsts {
   uint64_t q, qinv_neg, r2;
 };
 
+// u8 digits of a residue mod q: ceil(bits(q) / 8), at most 7 below 2^56.
+__device__ __forceinline__ int digits_of(uint64_t q) {
+  return (71 - __clzll(static_cast<long long>(q))) >> 3;
+}
+
 __device__ __forceinline__ LimbConsts load_consts(const int64_t* c, int l) {
   const uint64_t* u = reinterpret_cast<const uint64_t*>(c) + 3 * l;
   return LimbConsts{u[0], u[1], u[2]};

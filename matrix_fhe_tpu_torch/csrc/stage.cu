@@ -87,30 +87,11 @@ struct StageArgs {
   int batch, rows, W, Kp, left, tw_rows, KBs, Dmax;
 };
 
-__device__ __forceinline__ int digits_of(uint64_t q) {
-  return (71 - __clzll(static_cast<long long>(q))) >> 3;   // ceil(bits / 8)
-}
-
 using mfhe::cp_async16;
 using mfhe::cp_async_commit;
 using mfhe::cp_async_wait;
 using mfhe::fence_regs;
 using mfhe::smem_desc;
-
-// S = sum_j diag_j 2^(8 j) for one output, as (hi, lo): hi < 2^16, since
-// every diag_j < 2^31 and d <= 7.
-template <int D>
-__device__ __forceinline__ void fold(const int (&acc)[16 * D], int idx,
-                                     uint64_t& hi, uint64_t& lo) {
-  lo = hi = 0;
-#pragma unroll
-  for (int j = 0; j < D; ++j) {
-    const uint64_t a = static_cast<uint32_t>(acc[16 * j + idx]);
-    const uint64_t tlo = a << (8 * j);
-    lo += tlo;
-    hi += (j ? a >> (64 - 8 * j) : 0) + (lo < tlo ? 1ull : 0ull);
-  }
-}
 
 // Fold the d plane sums of this thread's 16 outputs and reduce each with
 // one Montgomery REDC (the planes carry the factor 2^64, and S < q 2^64:
@@ -144,7 +125,7 @@ __device__ __forceinline__ void epilogue(const int (&acc)[16 * D],
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         uint64_t hi, lo;
-        fold<D>(acc, 4 * t + 2 * h + e, hi, lo);
+        mfhe::fold<D>(acc, 4 * t + 2 * h + e, hi, lo);
         v[e] = mfhe::mont_redc(hi, lo, c);
       }
       if (pairs && w + 1 < p.W) {     // out[row, w : w + 2], 16-byte aligned
@@ -252,7 +233,7 @@ __global__ void __launch_bounds__(THREADS, 1) stage_kernel(const StageArgs p) {
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
   const int z = blockIdx.z, l = z / p.batch;
   const mfhe::LimbConsts c = mfhe::load_consts(p.consts, l);
-  switch (digits_of(c.q)) {
+  switch (mfhe::digits_of(c.q)) {
     case 1: stage_body<1>(p, sbase, c, z, l); break;
     case 2: stage_body<2>(p, sbase, c, z, l); break;
     case 3: stage_body<3>(p, sbase, c, z, l); break;
@@ -272,7 +253,7 @@ stage_split_kernel(const int64_t* __restrict__ x, uint8_t* __restrict__ xs,
                    int Kp, int KBx) {
   __shared__ uint64_t tile[SPLIT_K][SPLIT_M + 1];
   const int z = blockIdx.z;
-  const int d = digits_of(mfhe::load_consts(consts, z / batch).q);
+  const int d = mfhe::digits_of(mfhe::load_consts(consts, z / batch).q);
   const int k0 = blockIdx.y * SPLIT_K, m0 = blockIdx.x * SPLIT_M;
   const uint64_t* src =
       reinterpret_cast<const uint64_t*>(x) + static_cast<long long>(z) * K * M;

@@ -1,7 +1,7 @@
 // Hopper warpgroup tensor-core products on 8-bit digits, unsigned or signed.
 //
 // wgmma8<D, S8>(acc, da, db, accumulate): one wgmma.mma_async
-// m64n(32 D)k32 .s32.u8.u8 (S8 false: K1's u8 digit planes) or
+// m64n(32 D)k32 .s32.u8.u8 (S8 false: the u8 digit planes of K1, K2, K7) or
 // .s32.s8.s8 (S8 true: K4's balanced s8 digits), A [64 x 32] and
 // B [32 D x 32] both K-major in shared memory (descriptors da, db), 16 D s32
 // sums a thread; with `accumulate` 0 the sums are overwritten, else added
@@ -9,8 +9,9 @@
 // per digit count of a modulus below 2^56.  Register fragment of the
 // accumulator (PTX ISA, wgmma .m64nNk32): warp i of the warpgroup holds
 // rows 16 i .. 16 i + 15; a[4 b + 2 h + e] is row 16 i + lane / 4 + 8 h,
-// column 8 b + 2 (lane % 4) + e.  With them the helpers both kernels use to
-// fill their operand tiles: cp.async, the 128-byte-swizzle descriptor.
+// column 8 b + 2 (lane % 4) + e.  With them the helpers the kernels share
+// to fill their operand tiles (cp.async, the 128-byte-swizzle descriptor)
+// and to fold an output's u8 plane sums.
 #pragma once
 
 #include <cstdint>
@@ -57,6 +58,23 @@ template <int R>
 __device__ __forceinline__ void fence_regs(int (&a)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// The fold of a u8 digit-plane GEMM whose N holds D table planes of 32
+// columns (K1, K2, K7): S = sum_j diag_j 2^(8 j) of the output whose plane
+// sums are a[16 j + idx], as (hi, lo); hi < 2^16, since every diag_j <
+// 2^31 and D <= 7.
+template <int D>
+__device__ __forceinline__ void fold(const int (&a)[16 * D], int idx,
+                                     uint64_t& hi, uint64_t& lo) {
+  lo = hi = 0;
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const uint64_t x = static_cast<uint32_t>(a[16 * j + idx]);
+    const uint64_t tlo = x << (8 * j);
+    lo += tlo;
+    hi += (j ? x >> (64 - 8 * j) : 0) + (lo < tlo ? 1ull : 0ull);
+  }
 }
 
 template <int D, bool S8>

@@ -47,14 +47,15 @@ _SIGNATURES = {
     "mf_stage": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _LL,
                  _I, _I, _P],
     "mf_stage_split": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mf_ntt_mul_ntt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mf_ntt_mul_ntt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _P],
     "mf_inv_compose": [_P, _P, _P, _P, _P, _I, _LL, _P],
     "mf_fp_split": [_P, _P, _P, _I, _I, _I, _P],
     "mf_fp_cmatmul": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mf_four_step": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                      _P],
     "mf_cgemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "mf_gemm2x2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mf_gemm2x2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mf_u32_chain": [_P, _P, _LL, _I, _I, _P],
     "mf_coissue": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mf_ntt_mul_ntt_smem": [_I],

@@ -20,9 +20,10 @@ contracting the second-to-last axis of [L, W, y, m] operands,
 
     E_ij[l, w, a, b] = scale * sum_y U_i[l, w, y, a] V_j[l, w, y, b] mod q_l,
 
-csrc/gemm2x2.cu on CUDA tensors, and on CPU tensors the plain version: four
-exact float64-digit modular matmuls times scale, the function of JAX's
-XLA oracle HEMatmul2._mod_gemm.
+csrc/gemm2x2.cu on CUDA tensors (u8 digit-plane GEMMs on the int8 tensor
+cores, V pre-reduced per data digit inside the kernel with scale folded
+in), and on CPU tensors the plain version: four exact float64-digit modular
+matmuls times scale, the function of JAX's XLA oracle HEMatmul2._mod_gemm.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ from typing import Sequence, Tuple
 import torch
 
 from . import _backend as be
-from .cuda_ntt import _bits
-from .modmath import add_mod, kernel_consts, moduli_col, mul_mod, sub_mod
+from .cuda_ntt import _bits, digit_count
+from .modmath import (add_mod, kernel_consts, moduli_col, mul_mod, sub_mod,
+                      to_signed64)
 from .modmatmul import modmatmul
 
 I64 = torch.int64
@@ -88,13 +90,24 @@ class CGemm:
 
 
 class Gemm2x2:
-    """K7 for one modulus chain and one scale, constants on `device`."""
+    """K7 for one modulus chain and one scale, constants on `device`.
+
+    The kernel pre-reduces V per data digit c, V w_c mod q with
+    w_c = scale 2^(8 c) 2^64 mod q by Shoup's method (`vconsts`, [L, 8, 2]:
+    w_c and floor(w_c 2^64 / q)), so one Montgomery REDC of each output's
+    folded digit-plane sums gives scale U_i^T V_j mod q."""
 
     def __init__(self, moduli: Sequence[int], scale: int, device):
         self.moduli = tuple(int(q) for q in moduli)
         self.scale = int(scale)
         self.bits = _bits(self.moduli, 1)
         self.consts = kernel_consts(self.moduli, device, scale=self.scale)
+        w = [[self.scale * pow(2, 8 * c + 64, q) % q for c in range(8)]
+             for q in self.moduli]
+        self.vconsts = torch.tensor(
+            [[[wc, to_signed64((wc << 64) // q)] for wc in row]
+             for row, q in zip(w, self.moduli)], dtype=I64, device=device)
+        self.dmax = max(map(digit_count, self.moduli))
         self.q = moduli_col(self.moduli, 3, device)
         self.scale_q = moduli_col([self.scale % q for q in self.moduli], 3,
                                   device)
@@ -121,12 +134,11 @@ class Gemm2x2:
             raise ValueError(f"operands must be [L, W, y, m], got {tuple(u1.shape)}")
         W, y, m = u1.shape[1:]
         if y > 1 << 16:
-            raise ValueError(f"contraction of {y} terms: the 128-bit sums need y <= 2^16")
-        if L * W > 65535:
-            raise ValueError(f"{L} limbs x {W} lanes exceed the kernel grid (65535)")
+            raise ValueError(f"contraction of {y} terms: the kernel takes "
+                             "y <= 2^16")
         for name, t in (("u1", u1), ("u2", u2), ("v1", v1), ("v2", v2)):
             be.check(t, name, I64, (L, W, y, m))
         out = torch.empty((4, L, W, m, m), dtype=I64, device=u1.device)
         be.launch("gemm2x2", "mf_gemm2x2", u1.device, u1, u2, v1, v2,
-                  self.consts, out, L, W, y, m)
+                  self.consts, self.vconsts, out, L, W, y, m, self.dmax)
         return tuple(out.unbind(0))

@@ -8,7 +8,8 @@ PyTorch version, ``plain``, which is the same function (the CPU tests and
 chip_smoke.py hold the two equal).  All limbs run in one launch.  K1,
 K10a and K3's matmul run on the int8 tensor cores over u8 digit planes of
 the table (``slice_tables``, built on the device at a Stage's first CUDA
-call), K3's compose in a pass of its own; K2 on 64-bit integer products.
+call), K3's compose in a pass of its own; K2 runs two such GEMMs in one
+launch with the spectrum in shared memory.
 The TPU's limb runs and u32 lo/hi planes do not exist here.
 """
 
@@ -258,10 +259,14 @@ class NttMulNtt:
 
     a [L, R, n] X-coefficient rows, s_mont [L, W, n] in storage form
     s * 2^64 mod q; row r uses key row r // (R // W).  Both tables follow
-    the out = T @ in convention (fwd [k, x], inv [x, k]).  The kernel holds
-    one table in shared memory at a time (n <= 128: the gl2 ring's 2n); the
-    wrapper refuses before launching any n whose shared memory would exceed
-    one block's 227 KB."""
+    the out = T @ in convention (fwd [k, x], inv [x, k]).  On the card both
+    transforms are K1's u8 digit-plane GEMMs in one launch
+    (csrc/ntt_mul_ntt.cu): the data read as its bytes, the forward table's
+    planes, one Montgomery product by s in the epilogue into a spectrum
+    tile in shared memory, the inverse table's planes.  The planes are
+    K1's side 'right' layout (`slice_tables`), cut on the device at the
+    first CUDA call.  The kernel takes even n up to 128 (the gl2 ring's
+    2n); the wrapper refuses any other n before launching."""
 
     def __init__(self, fwd_u64: np.ndarray, inv_u64: np.ndarray,
                  moduli: Sequence[int], device):
@@ -273,6 +278,7 @@ class NttMulNtt:
         self.q = moduli_col(self.moduli, 2, device)
         self.r_inv = moduli_col(
             [pow(1 << 64, -1, q) for q in self.moduli], 2, device)
+        self._planes = None     # (fwd, inv, KBs), at the first CUDA call
 
     def __call__(self, a: torch.Tensor, s_mont: torch.Tensor) -> torch.Tensor:
         if be.on_device(a, s_mont, self.fwd):
@@ -286,22 +292,39 @@ class NttMulNtt:
         u = mul_mod(v, s.repeat_interleave(rep, dim=1), self.q)
         return modmatmul(self.inv, u, self.q, self.bits, "right")
 
+    def planes(self) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """(forward planes, inverse planes, KBs): K1's side 'right' digit
+        planes of both tables, cut on the tables' device once."""
+        if self._planes is None:
+            n = self.fwd.shape[-1]
+            kp, kbs, tile_w, _ = plane_layout(n, self.moduli, "right")
+            self._planes = tuple(
+                slice_tables(t, self.moduli, "right", kp, kbs, tile_w)
+                for t in (self.fwd, self.inv)) + (kbs,)
+        return self._planes
+
     def kernel(self, a: torch.Tensor, s_mont: torch.Tensor) -> torch.Tensor:
         L, n, _ = self.fwd.shape
         if be.library().mf_ntt_mul_ntt_smem(n) == 0:
             raise ValueError(
-                f"K2 takes no ring of n = {n}: it needs one n x n table "
-                f"({n * n * 8} B) and its row buffers in the shared memory "
-                f"of one block, at most {SMEM_LIMIT} B on Hopper, and n "
-                "dividing its thread count")
+                f"K2 takes no ring of n = {n}: its spectrum tile (8 n bytes "
+                f"a row) and its ring of table-plane tiles must fit the "
+                f"shared memory of one block, at most {SMEM_LIMIT} B on "
+                "Hopper, so n must be even and at most 128")
         R, W = a.shape[1], s_mont.shape[1]
         if R % W:
             raise ValueError(f"rows {R} not a multiple of key rows {W}")
         be.check(a, "a", I64, (L, R, n))
         be.check(s_mont, "s_mont", I64, (L, W, n))
+        if a.data_ptr() % 16:
+            a = a.clone()
+        if s_mont.data_ptr() % 16:
+            s_mont = s_mont.clone()
+        fwd, inv, kbs = self.planes()
         out = torch.empty_like(a)
-        be.launch("ntt_mul_ntt", "mf_ntt_mul_ntt", a.device, a, s_mont,
-                  self.fwd, self.inv, self.consts, out, L, R, W, n, R // W)
+        be.launch("ntt_mul_ntt", "mf_ntt_mul_ntt", a.device, a, s_mont, fwd,
+                  inv, self.consts, out, L, R, W, n, R // W, kbs,
+                  fwd.shape[2])
         return out
 
 

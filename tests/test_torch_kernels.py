@@ -1,6 +1,7 @@
 """Kernels K1-K4, K7, K10a's twiddle form, K11 and K12 of the PyTorch port
-against the JAX package's Pallas kernels, and the methods of K1, K3 and
-K4's CUDA kernels transcribed to run on the CPU.
+against the JAX package's Pallas kernels, and the methods of K1, K2, K3,
+K4 and K7's CUDA kernels transcribed to run on the CPU (K2's and K7's with
+the kernels' Montgomery and Shoup arithmetic on uint64 words).
 
 On the CPU each port wrapper runs its plain PyTorch version; the JAX side
 runs the Pallas kernels in interpret mode (SlicedStage, SlicedNttMulNtt,
@@ -248,6 +249,126 @@ def test_ntt_mul_ntt_matches_sliced(rep):
     got = NttMulNtt(T.x_fwd_nega, T.x_inv_nega, P.moduli, "cpu")(i64(a),
                                                                   i64(s))
     np.testing.assert_array_equal(u64(got), want)
+
+
+# -- the kernels' Montgomery arithmetic, transcribed (csrc/modarith.cuh) ------
+
+def _umulhi(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """__umul64hi on uint64 arrays, exact, from 32-bit halves."""
+    m32 = np.uint64(0xFFFFFFFF)
+    s32 = np.uint64(32)
+    al, ah, bl, bh = a & m32, a >> s32, b & m32, b >> s32
+    ll, lh, hl, hh = al * bl, al * bh, ah * bl, ah * bh
+    mid = (ll >> s32) + (lh & m32) + (hl & m32)
+    return hh + (lh >> s32) + (hl >> s32) + (mid >> s32)
+
+
+def _redc(hi, lo, q: int) -> np.ndarray:
+    """mont_redc: (hi 2^64 + lo) 2^-64 mod q for hi < q, canonical."""
+    qinv_neg = np.uint64((-pow(q, -1, 1 << 64)) % (1 << 64))
+    qq = np.uint64(q)
+    with np.errstate(over="ignore"):
+        m = lo * qinv_neg
+        t = hi + _umulhi(m, np.full_like(m, qq)) + (lo != 0).astype(np.uint64)
+    assert (hi < qq).all(), "REDC needs hi < q"
+    return np.where(t >= qq, t - qq, t)
+
+
+def _mont_mul(a, b, q: int) -> np.ndarray:
+    with np.errstate(over="ignore"):
+        return _redc(_umulhi(a, b), a * b, q)
+
+
+def _fold(diags) -> tuple:
+    """fold: S = sum_j diag_j 2^(8 j) as (hi, lo) words, each diag_j an s32
+    sum (checked below 2^31)."""
+    lo = np.zeros(diags[0].shape, np.uint64)
+    hi = np.zeros_like(lo)
+    for j, dj in enumerate(diags):
+        assert 0 <= dj.min() and dj.max() < 1 << 31, "an s32 sum overflows"
+        a = dj.astype(np.uint64)
+        tlo = a << np.uint64(8 * j)
+        with np.errstate(over="ignore"):
+            lo = lo + tlo
+        hi = hi + (a >> np.uint64(64 - 8 * j) if j else 0) + (lo < tlo)
+    return hi, lo
+
+
+def _u8_gemm(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """A u8 digit GEMM's s32 sums as int64: float64 operands of digits <
+    256, exact while a sum stays below 2^53 (every sum here is checked
+    below 2^31 by _fold)."""
+    return (a @ b).astype(np.int64)
+
+
+# -- K2's fused method, transcribed from csrc/ntt_mul_ntt.cu -------------------
+
+def _fused_ntt_mul_ntt(k2, a: np.ndarray, s: np.ndarray) -> np.ndarray:
+    """ntt_mul_ntt_kernel on uint64 arrays a [L, R, n], s [L, W, n]: K1's
+    side 'right' planes of both tables (slice_tables, 32-row tiles), the
+    data's bytes as 8 digit slots a term, per 32-column tile d u8 GEMMs,
+    the fold and one REDC an output, one Montgomery product by s, the
+    spectrum's bytes as the inverse transform's digits, the inverse GEMMs,
+    fold and REDC."""
+    L, R, n = a.shape
+    rep = R // s.shape[1]
+    kbs = 8 * n
+    fwd, inv = (slice_tables(t, k2.moduli, "right", n, kbs, 32).numpy()
+                .astype(np.float64) for t in (k2.fwd, k2.inv))
+    out = np.empty_like(a)
+    for l, q in enumerate(k2.moduli):
+        d = digit_count(q)
+
+        def transform(x, planes):      # x [R, n] canonical -> [R, n]
+            xb = x.view(np.uint8).reshape(R, kbs).astype(np.float64)
+            tiles = [_redc(*_fold([_u8_gemm(xb, planes[l, jt, j].T)
+                                   for j in range(d)]), q)
+                     for jt in range(planes.shape[1])]
+            return np.concatenate(tiles, axis=1)[:, :n]
+
+        v = transform(a[l], fwd)
+        u = _mont_mul(v, np.repeat(s[l], rep, axis=0), q)
+        out[l] = transform(np.ascontiguousarray(u), inv)
+    return out
+
+
+def _k2_case(n, rep, fill, seed, moduli=MIXED, w=3):
+    """A K2 over `moduli` with random n x n tables and its inputs a [L, w
+    rep, n], s [L, w, n]; fill='max' sets tables and inputs to q - 1."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):
+        if fill == "max":
+            return np.stack([np.full(shape, q - 1, dtype=np.uint64)
+                             for q in moduli])
+        return residues(rng, moduli, shape)
+
+    k2 = NttMulNtt(draw((n, n)), draw((n, n)), moduli, "cpu")
+    return k2, draw((w * rep, n)), draw((w, n))
+
+
+@pytest.mark.parametrize("fill", ["random", "max"])
+@pytest.mark.parametrize("rep", [1, 64])
+@pytest.mark.parametrize("n", [8, 16, 64, 128])
+def test_fused_ntt_mul_ntt_matches_plain(n, rep, fill):
+    """K2's fused method equals NttMulNtt.plain, the definition, on 35-,
+    40-, 45- and 55-bit limbs in one call, at every X ring the presets use
+    (n = 8, 16, 64, the gl2 ring's 128); exact, bit for bit."""
+    k2, a, s = _k2_case(n, rep, fill, seed=50 + n + rep)
+    want = u64(k2.plain(i64(a), i64(s)))
+    np.testing.assert_array_equal(_fused_ntt_mul_ntt(k2, a, s), want)
+
+
+@pytest.mark.parametrize("rep", [1, P.n])
+def test_fused_ntt_mul_ntt_matches_sliced(rep):
+    """At tiny, K2's fused method against SlicedNttMulNtt (interpret)."""
+    rng = np.random.default_rng(3)
+    a = residues(rng, P.moduli, (P.phi * rep, P.n))
+    s = residues(rng, P.moduli, (P.phi, P.n))
+    k2 = pn.SlicedNttMulNtt(T.x_fwd_nega, T.x_inv_nega, P.moduli, rep=rep)
+    want = jax_join(k2(*jax_split(a), *jax_split(s)))
+    port = NttMulNtt(T.x_fwd_nega, T.x_inv_nega, P.moduli, "cpu")
+    np.testing.assert_array_equal(_fused_ntt_mul_ntt(port, a, s), want)
 
 
 # -- K3 -----------------------------------------------------------------------
@@ -664,6 +785,119 @@ def test_gemm2x2_plain_matches_sliced_interpret(monkeypatch):
         np.testing.assert_array_equal(u64(g), np.asarray(w))
 
 
+# -- K7's method, transcribed from csrc/gemm2x2.cu -----------------------------
+
+def _shoup_mul(x, w: int, wp: int, q: int) -> np.ndarray:
+    """shoup_mul: x w mod q from the pair (w, floor(w 2^64 / q))."""
+    qq = np.uint64(q)
+    with np.errstate(over="ignore"):
+        r = x * np.uint64(w) - _umulhi(x, np.full_like(x, np.uint64(wp))) * qq
+    assert (r < 2 * qq).all()
+    return np.where(r >= qq, r - qq, r)
+
+
+def _digit_plane_gemm2x2(g, u1, u2, v1, v2, flush_terms=4096):
+    """gemm2x2_kernel on uint64 arrays [L, W, y, m]: per limb V_j
+    pre-reduced per data digit c by a Shoup product with the kernel's pair
+    (w_c, w_c'), w_c = scale 2^(8 c) 2^64 mod q, and cut into u8 planes,
+    U_i's digits transposed (rows a, index c y + y'), d u8 GEMMs into s32
+    sums over chunks of `flush_terms` terms, each folded, reduced by one
+    REDC and summed mod q into E."""
+    L, W, y, m = u1.shape
+    vc = u64(g.vconsts)
+    E = np.empty((4, L, W, m, m), np.uint64)
+    for l, q in enumerate(g.moduli):
+        d = digit_count(q)
+        for i, u in enumerate((u1, u2)):
+            for j, v in enumerate((v1, v2)):
+                total = np.zeros((W, m, m), np.uint64)
+                for y0 in range(0, y, flush_terms):
+                    uc, vv = u[l, :, y0:y0 + flush_terms], v[l, :, y0:y0 + flush_terms]
+                    ud = np.concatenate(        # [W, m, d yc]: A rows a
+                        [((uc >> np.uint64(8 * c)) & np.uint64(255))
+                         .transpose(0, 2, 1) for c in range(d)], axis=2)
+                    vcs = [_shoup_mul(vv, int(vc[l, c, 0]), int(vc[l, c, 1]),
+                                      q) for c in range(d)]
+                    diags = []
+                    for pj in range(d):         # B rows b, plane pj
+                        bp = np.concatenate(
+                            [((x >> np.uint64(8 * pj)) & np.uint64(255))
+                             .transpose(0, 2, 1) for x in vcs], axis=2)
+                        diags.append(_u8_gemm(ud.astype(np.float64),
+                                              bp.astype(np.float64)
+                                              .transpose(0, 2, 1)))
+                    part = _redc(*_fold(diags), q)
+                    total = (total + part) % np.uint64(q)
+                E[2 * i + j, l] = total
+    return E
+
+
+def _k7_case(moduli, lanes, y, m, scale, fill, seed):
+    rng = np.random.default_rng(seed)
+    g = Gemm2x2(moduli, scale, "cpu")
+    if fill == "max":
+        ops = [np.stack([np.full((lanes, y, m), q - 1, dtype=np.uint64)
+                         for q in moduli]) for _ in range(4)]
+    else:
+        ops = [residues(rng, moduli, (lanes, y, m)) for _ in range(4)]
+    return g, ops
+
+
+REF2 = get_params("ref").moduli[:2]           # 45 and 35 bits
+K7_CASES = {
+    "tiny": (P.moduli, P.phi, P.n, 2 * P.n, P.n, "random"),
+    "ref-like": (REF2, 2, 64, 128, 64, "random"),
+    "max-55": (REF_P_MODULI[:1] + REF2[:1], 2, 64, 128, 12345, "max"),
+    "ragged": (MIXED, 3, 37, 29, 7, "random"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_k7_digit_planes_match_plain(case):
+    """K7's method (V pre-reduced per digit with scale folded in, U's
+    transposed digits, one REDC an output) equals Gemm2x2.plain, bit for
+    bit: at tiny, at the ref gl2 shape y = 64, m = 128 on two limbs, with
+    every entry q - 1 on a 55 + 45-bit chain, and at odd y and m on 35- to
+    55-bit limbs."""
+    g, ops = _k7_case(*K7_CASES[case], seed=60)
+    want = g.plain(*(i64(x) for x in ops))
+    got = _digit_plane_gemm2x2(g, *ops)
+    for k in range(4):
+        np.testing.assert_array_equal(got[k], u64(want[k]))
+
+
+def test_k7_digit_planes_flush():
+    """Contractions past one flush: y = 4100 terms at 7 digits, every entry
+    q - 1 (28,672 digit rows a flush, the s32 sums checked), and chunks of
+    16 terms on random data, equal Gemm2x2.plain."""
+    for moduli, y, fill, flush in ((REF_P_MODULI[:1], 4100, "max", 4096),
+                                   (MIXED, 70, "random", 16)):
+        g, ops = _k7_case(moduli, 1, y, 6, 3, fill, seed=61)
+        want = g.plain(*(i64(x) for x in ops))
+        got = _digit_plane_gemm2x2(g, *ops, flush_terms=flush)
+        for k in range(4):
+            np.testing.assert_array_equal(got[k], u64(want[k]))
+
+
+def test_k7_digit_planes_match_sliced_interpret(monkeypatch):
+    """At tiny on a 45 + 35-bit chain, K7's method against SlicedGemm2x2
+    (MFHE_GEMM2=sliced, interpret mode)."""
+    from matrix_fhe_tpu.models.he2 import Gl2Context as JaxGl2Context
+    from matrix_fhe_tpu.models.he_matmul2 import HEMatmul2 as JaxHEMatmul2
+
+    monkeypatch.setenv("MFHE_GEMM2", "sliced")
+    m45 = (generate_ntt_primes(1, 45, P.n, P.p)
+           + generate_ntt_primes(2, 35, P.n, P.p))
+    jp = dataclasses.replace(P, name="tiny45x2", moduli=m45)
+    jhm = JaxHEMatmul2(JaxGl2Context(jp, use_pallas=False))
+    rng = np.random.default_rng(19)
+    ops = [residues(rng, m45, (jp.phi, jp.n, 2 * jp.n)) for _ in range(4)]
+    want = jhm._gemm2x2(*(jnp.asarray(x) for x in ops))
+    got = _digit_plane_gemm2x2(Gemm2x2(m45, jp.n, "cpu"), *ops)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
 # -- exact helpers around the kernels ------------------------------------------
 
 @pytest.mark.parametrize("sh", [0, 1, 7, 31, 32, 33, 45, 63, 64, 70])
@@ -854,6 +1088,21 @@ def test_cuda_ntt_mul_ntt_refuses_what_does_not_fit(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["random", "max"])
+@pytest.mark.parametrize("rep", [1, 64])
+@pytest.mark.parametrize("n", [8, 16, 32, 64, 128])
+def test_cuda_ntt_mul_ntt_every_ring(cuda, n, rep, fill):
+    """K2 at every n the presets use (and 32): 35-, 40-, 45- and 55-bit
+    limbs in one launch, R = 3 rep rows (ragged against the block's 128 or
+    64), rep = 1 and 64, random and all-(q - 1) tables and inputs."""
+    k2, a, s = _k2_case(n, rep, fill, seed=70 + n + rep)
+    k2 = NttMulNtt(u64(k2.fwd), u64(k2.inv), k2.moduli, cuda)
+    a, s = i64(a).to(cuda), i64(s).to(cuda)
+    got = _launched("ntt_mul_ntt", lambda: k2(a, s))
+    assert torch.equal(got.cpu(), k2.plain(a, s).cpu())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("preset", ["tiny", "small"])
 def test_cuda_inv_compose_matches_plain(cuda, preset):
     p = get_params(preset)
@@ -1029,6 +1278,29 @@ def test_cuda_gemm2x2_matches_plain(cuda, preset):
         want = gemm.plain(*ops)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K7_CASES) + ["small", "flush"])
+def test_cuda_gemm2x2_digit_plane_cases(cuda, case):
+    """K7 at tiny, small and the ref gl2 shape (y = 64, m = 128), all-(q -
+    1) entries with scale != 1 on a 55 + 45-bit chain, odd y and m on 35-
+    to 55-bit limbs, and y = 4100 (past one flush of the s32 sums) with
+    every entry q - 1 at 7 digits."""
+    if case == "small":
+        p = get_params("small")
+        spec = (p.moduli, p.phi, p.n, 2 * p.n, p.n, "random")
+    elif case == "flush":
+        spec = (REF_P_MODULI[:1], 2, 4100, 40, 3, "max")
+    else:
+        spec = K7_CASES[case]
+    g, ops = _k7_case(*spec, seed=62)
+    g = Gemm2x2(g.moduli, g.scale, cuda)
+    ops = [i64(x).to(cuda) for x in ops]
+    got = _launched("gemm2x2", lambda: g(*ops))
+    want = g.plain(*ops)
+    for x, w in zip(got, want):
+        assert torch.equal(x.cpu(), w.cpu())
 
 
 @pytest.mark.cuda
