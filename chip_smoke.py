@@ -39,21 +39,21 @@ and read just after:
 
 Every kernel is held bit for bit against its plain PyTorch version at the
 shapes its path gives it, and both are timed, with the least time the card
-could take for the same work (bytes at 3.35 TB/s; K1, K10a, K2, K3 and
-K7's u8 digit products and K4's s8 digit products by the JAX kernel's
-Karatsuba method at the int8 tensor-core rate of 1,979 TOP/s; the 64 x
-64-bit products of K6 as 32-bit multiply-adds, counted from the SASS of
-K6's inner loop, at the card's IMAD rate of 64 a clock on each SM; K5's
-Shoup products at the IMADs a product of its register kernel's SASS, per
-word width, its index and address IMADs left out) and, where one PyTorch
-call computes the same function, that call's time (K11's copy:
-Tensor.copy_ on the same buffers, in turns).  For each K1, K2, K3, K4,
-K5, K7 and K10a row a [bound] line logs the byte and operation bounds
-apart and the IMAD bound of the earlier 64-bit route; K3's parts (split,
-GEMM, compose) and K4's split pass are timed apart on [kernel] lines, and
-so is K2's function as two launches (K10a's twiddle form forward with s
-as the twiddle, then K1's inverse), the yardstick of its fusion.  K2's
-rows carry its launches on every path that runs it (`launches_by_path`).
+could take for the same work (bytes at 3.35 TB/s; K1, K10a, K2, K3, K6
+and K7's u8 digit products, K4's s8 digit products by the JAX kernel's
+Karatsuba method and K12's s8 dots at the int8 tensor-core rate of 1,979
+TOP/s; K5's Shoup products at the IMADs a product of its register
+kernel's SASS, per word width, its index and address IMADs left out, at
+the card's IMAD rate of 64 a clock on each SM) and, where one PyTorch call
+computes the same function, that call's time (K11's copy: Tensor.copy_ on
+the same buffers, in turns).  For every row a [bound] line logs the byte
+and operation bounds apart; K3's parts (split, GEMM, compose) and K4's
+split pass are timed apart on [kernel] lines, and so is K2's function as
+two launches (K10a's twiddle form forward with s as the twiddle, then
+K1's inverse), the yardstick of its fusion.  K2's rows carry its launches
+on every path that runs it (`launches_by_path`).  The SASS check fails if
+a kernel whose products run on the tensor cores (K1, K2, K4, K6, K7, and
+K12's mxu, both and dep instantiations) has no wgmma instruction.
 Fails (nonzero exit, no result line) without a CUDA device, on a build or
 launch error, on any disagreement, or when a path's check fails.
 
@@ -121,14 +121,12 @@ def nbytes(x) -> int:
 
 
 def check_kernel(name, key, source, replaces, kernel_fn, plain_fn, inputs,
-                 work, reps=5, library_fn=None, imad_products=None):
+                 work, reps=5, library_fn=None):
     """Hold one kernel against its plain version (bit-exact) and time both;
     `key` names its launch counter, `inputs` are the tensors the function
     reads (with the outputs, they make the bytes of the bound) and `work`
-    its operations by type ("products": 64 x 64 -> 128-bit products,
-    "imad": IMAD-class instructions, "int32", "int8"); `imad_products`,
-    where given, the products of an earlier 64-bit route, whose IMAD bound
-    the row keeps beside its own."""
+    its operations by type ("imad": IMAD-class instructions, "int32",
+    "int8")."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -145,66 +143,56 @@ def check_kernel(name, key, source, replaces, kernel_fn, plain_fn, inputs,
            "replaces": replaces, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bytes": nbytes(inputs) + nbytes(got), "work": work}
-    if imad_products is not None:
-        row["imad_products"] = imad_products
     return row
 
 
-def stage_products(stage, data) -> int:
-    """64-bit products of one K1 / K10a call on a 64 x 64-bit route: L x
-    rows x K x cols (plus one per output for a twiddle, counted by the
-    caller).  The bound of the earlier IMAD route, kept beside the int8
-    one."""
-    L, W, K = stage.table.shape
-    if stage.side == "left":
-        return L * W * K * data.shape[2]
-    if stage.side == "batched_left":
-        return L * data.shape[1] * W * K * data.shape[3]
-    return L * data.shape[1] * K * W
-
-
-def stage_work(stage, data, twiddle=False) -> dict:
+def stage_work(stage, data) -> dict:
     """Operations of one K1 / K10a call by the digit-plane method: u8
     products, 2 x rows x cols x (d_l K) x d_l a limb, with d_l =
     ceil(bits / 8) data digits and table planes, on every side (the right
     side's kernel reads each int64 as 8 byte slots, 8 K digit rows: the
-    zero slots are the design's cost, not the function's work); a twiddle
-    adds one Montgomery product an output.  "imad_products" is the earlier
-    route's count."""
+    zero slots are the design's cost, not the function's work).  A
+    twiddle's one Montgomery product an output is not counted: it never set
+    a row's bound."""
     from matrix_fhe_tpu_torch.ops.cuda_ntt import digit_count
     L, W, K = stage.table.shape
     outs = (data.numel() // K) * W // L      # outputs of one limb
-    int8 = sum(2 * outs * d * K * d for d in map(digit_count, stage.moduli))
-    work = {"int8": int8}
-    if twiddle:
-        work["products"] = L * outs
-    return {"work": work,
-            "imad_products": stage_products(stage, data) + L * outs * twiddle}
+    return {"int8": sum(2 * outs * d * K * d
+                        for d in map(digit_count, stage.moduli))}
 
 
 def ntt_mul_ntt_work(k2, a_rows) -> dict:
     """Operations of one K2 call by the digit-plane method: the function's
     u8 digit products, two transforms of 2 R n (d_l n) d_l a limb (the
     kernel's 8 byte slots a term do 8 / d_l of that: the design's cost,
-    not counted).  "imad_products" is the earlier 64-bit route's R (2 n^2
-    + n) a limb."""
+    not counted)."""
     from matrix_fhe_tpu_torch.ops.cuda_ntt import digit_count
     L, R, n = a_rows.shape
     int8 = sum(2 * 2 * R * n * d * n * d
                for d in map(digit_count, k2.moduli))
-    return {"work": {"int8": int8}, "imad_products": L * R * (2 * n * n + n)}
+    return {"int8": int8}
 
 
 def gemm2x2_work(gemm, u) -> dict:
     """Operations of one K7 call by the digit-plane method: four products
     of 2 W m^2 (d_l y) d_l u8 digit products a limb (the d_l Shoup
-    products an element of V that pre-reduce it are not counted).
-    "imad_products" is the earlier 64-bit route's 4 L W y m^2."""
+    products an element of V that pre-reduce it are not counted)."""
     from matrix_fhe_tpu_torch.ops.cuda_ntt import digit_count
     L, W, y, m = u.shape
     int8 = sum(4 * 2 * W * m * m * d * y * d
                for d in map(digit_count, gemm.moduli))
-    return {"work": {"int8": int8}, "imad_products": 4 * L * W * y * m * m}
+    return {"int8": int8}
+
+
+def cgemm_work(gemm, a) -> dict:
+    """Operations of one K6 call by the digit-plane method: four real
+    products of 2 W n^2 (d_l n) d_l u8 digit products a limb, 8 W n^3 d_l^2
+    (the d_l Shoup products an element of B that pre-reduce it are not
+    counted)."""
+    from matrix_fhe_tpu_torch.ops.cuda_ntt import digit_count
+    L, W, n, _ = a.shape
+    return {"int8": sum(8 * W * n ** 3 * d * d
+                        for d in map(digit_count, gemm.moduli))}
 
 
 def fp_work(fp, m: int) -> dict:
@@ -213,8 +201,7 @@ def fp_work(fp, m: int) -> dict:
     products, tchunks balanced 7-bit digits of the table as
     _split_tables_balanced counts them, dchunks = DATA_CHUNKS = 6 at
     X_BITS = 37).  The kernel makes four real products on 8-bit digits,
-    100/90 of that: the design's cost, not counted.  "imad_products" is
-    the earlier 64-bit route's 4 W K m."""
+    100/90 of that: the design's cost, not counted."""
     from matrix_fhe_tpu_torch.ops.fpmatmul import X_BITS
     W, K = fp.tr.shape
     mx = int(torch.stack([fp.tr.abs().max(), fp.ti.abs().max(),
@@ -223,8 +210,7 @@ def fp_work(fp, m: int) -> dict:
     while 127 * 128 ** (tchunks - 1) // 2 <= mx:
         tchunks += 1
     dchunks = -(-(X_BITS + 3) // 7)
-    return {"work": {"int8": 3 * tchunks * dchunks * 2 * W * K * m},
-            "imad_products": 4 * W * K * m}
+    return {"int8": 3 * tchunks * dchunks * 2 * W * K * m}
 
 
 def check_fp_cmatmul(name, fp, m, gen):
@@ -246,7 +232,7 @@ def check_fp_cmatmul(name, fp, m, gen):
         "matrix_fhe_tpu/ops/fpmatmul.py:129",
         lambda: fp_cmatmul_kernel(fp.tr, fp.ti, xr, xi, planes),
         lambda: fp_cmatmul_plain(fp.tr, fp.ti, xr, xi),
-        [fp.tr, fp.ti, xr, xi], **fp_work(fp, m))
+        [fp.tr, fp.ti, xr, xi], fp_work(fp, m))
     xp = torch.empty((2, planes.shape[1], m, planes.shape[-1]),
                      dtype=torch.int8, device="cuda")
     split_ms = cuda_ms(lambda: be.launch(
@@ -354,48 +340,13 @@ def k5_imads_per_product(funcs, r: int = 16) -> dict:
     return {w: i / p for w, (i, p) in tot.items()}
 
 
-def imads_per_product(funcs):
-    """32-bit multiply-adds (IMAD, IMAD.WIDE, IMAD.HI, IMAD.X; not the
-    IMAD.MOV / SHL / IADD forms) per 64 x 64 -> 128-bit product in the inner
-    loop of K6 (cgemm_kernel, csrc/cgemm.cu): the loop with the most of
-    them, less its nested loops (the tile loads).  Its products come from
-    its shared-memory loads, whatever the compiler's unrolling: each k-step
-    reads 16 residues of 8 bytes (4 each of Ar, Ai, Br, Bi) and makes
-    4 x 4 x 4 = 64 products, so the loop's products are its LDS bytes / 2.
-    The IMAD bounds of K2's and K7's earlier 64-bit routes, which shared
-    this product helper (csrc/modarith.cuh: mac_u128), are counted with it.
-    Returns (IMADs per product, IMADs, products)."""
-    body = next(f for name, f in funcs.items() if "cgemm_kernel" in name)
-    insts, loops = _sass_loops(body.splitlines())
-
-    def lds_bytes(text):
-        op = _opcode(text)
-        if not op.startswith("LDS"):
-            return 0
-        width = re.search(r"\.(32|64|128)\b", op)
-        return int(width.group(1)) // 8 if width else 4
-
-    def count(lo, hi, measure):
-        inner = [(a, b) for a, b in loops if lo <= a and b < hi
-                 and (a, b) != (lo, hi)]
-        return sum(measure(t) for a, t in insts if lo <= a <= hi
-                   and not any(x <= a <= y for x, y in inner))
-
-    lo, hi = max(loops, key=lambda r: count(*r, _is_imad))
-    imads = count(lo, hi, _is_imad)
-    nbytes = count(lo, hi, lds_bytes)
-    if nbytes == 0 or nbytes % 128:
-        raise AssertionError(f"cgemm inner loop reads {nbytes} B of shared "
-                             "memory, not a whole number of 16 x 8 B k-steps")
-    products = nbytes // 2
-    return imads / products, imads, products
-
-
 def tensor_core_ops(funcs, kernel: str) -> int:
     """Warpgroup tensor-core instructions (IGMMA) in a kernel whose
     products run on the int8 tensor cores (K1's stage_kernel, K2's
-    ntt_mul_ntt_kernel, K4's fp_cmatmul_kernel, K7's gemm2x2_kernel),
-    summed over its instantiations; each must have some."""
+    ntt_mul_ntt_kernel, K4's fp_cmatmul_kernel, K6's cgemm_kernel, K7's
+    gemm2x2_kernel, K12's coissue_kernel<1, 3, 4>: a name's part as
+    cuobjdump mangles it, "coissue_kernelILi1E"), summed over the
+    instantiations whose names hold `kernel`; each must have some."""
     bodies = [f for name, f in funcs.items() if kernel in name]
     if not bodies:
         raise AssertionError(f"no function {kernel} in the library")
@@ -422,13 +373,13 @@ def kernel_checks(ctx, gen):
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
         lambda: wt._fwd.kernel(d_w), lambda: wt._fwd.plain(d_w),
-        [wt._fwd.table, d_w], **stage_work(wt._fwd, d_w)))
+        [wt._fwd.table, d_w], stage_work(wt._fwd, d_w)))
     d_x = random_residues(p.moduli, (W, n), gen)
     rows.append(check_kernel(
         "stage (K1, X-NTT)", "stage", "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
         lambda: xntt._fwd.kernel(d_x), lambda: xntt._fwd.plain(d_x),
-        [xntt._fwd.table, d_x], **stage_work(xntt._fwd, d_x)))
+        [xntt._fwd.table, d_x], stage_work(xntt._fwd, d_x)))
     a_rows = random_residues(p.moduli, (W * n, n), gen)
     s_mont = random_residues(p.moduli, (W, n), gen)
     k2 = xntt._mul_s
@@ -437,7 +388,7 @@ def kernel_checks(ctx, gen):
         "matrix_fhe_tpu_torch/csrc/ntt_mul_ntt.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1851",
         lambda: k2.kernel(a_rows, s_mont), lambda: k2.plain(a_rows, s_mont),
-        [k2.fwd, k2.inv, a_rows, s_mont], **ntt_mul_ntt_work(k2, a_rows)))
+        [k2.fwd, k2.inv, a_rows, s_mont], ntt_mul_ntt_work(k2, a_rows)))
     # the yardstick of the fusion: the same function as two launches, K10a's
     # twiddle form forward with s as the twiddle, then K1's inverse (the
     # spectrum written to and read from device memory)
@@ -459,7 +410,7 @@ def kernel_checks(ctx, gen):
         "matrix_fhe_tpu_torch/csrc/inv_compose.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1731",
         lambda: k3.kernel(x_ev), lambda: k3.plain(x_ev), [k3.table, x_ev],
-        **stage_work(k3._stage, x_ev)))
+        stage_work(k3._stage, x_ev)))
     r_ev = k3._stage.kernel(x_ev)
     log(f"[kernel] inv_compose (K3) in parts: split "
         f"{cuda_ms(lambda: k3._stage.split_digits(x_ev), 5):.3f} ms, split + "
@@ -515,9 +466,7 @@ def ntt_path(bits: int, gen, k5_imads: dict):
         f"{ntt.word_bits}-bit route")
     kt = ntt._kernel_tables
     # the function's modular products: N/2 log2 N butterflies and 2N
-    # element-wise products, at the route's IMADs a Shoup product; the
-    # earlier route's count (a Montgomery product is two 64 x 64-bit
-    # products) is logged with its bound
+    # element-wise products, at the route's IMADs a Shoup product
     products = L * B * (N // 2 * (N.bit_length() - 1) + 2 * N)
     work = {"imad": products * k5_imads[ntt.word_bits]}
     rows = []
@@ -532,8 +481,7 @@ def ntt_path(bits: int, gen, k5_imads: dict):
             "matrix_fhe_tpu/ops/pallas_ntt.py:1430",
             lambda kernel=kernel, data=data: kernel(data),
             lambda plain=plain, data=data: plain(data),
-            [data] + [kt[k] for k in names], dict(work), reps=10,
-            imad_products=2 * products))
+            [data] + [kt[k] for k in names], dict(work), reps=10))
     for row in rows:
         row["launches"] = launches.get(row.pop("key"), 0)
     route = {}
@@ -630,7 +578,7 @@ def matmul_path():
                        "matrix_fhe_tpu_torch/csrc/cgemm.cu",
                        "matrix_fhe_tpu/ops/pallas_cgemm.py:41",
                        lambda: gemm.kernel(*ops), lambda: gemm.plain(*ops),
-                       ops, {"products": 4 * len(p.moduli) * W * n ** 3})
+                       ops, cgemm_work(gemm, ops[0]))
     row["launches"] = launches.get(row.pop("key"), 0)
     summary = {"ref_matmul_err": err, "ref_matmul_tensor_ms": tensor_ms,
                "ref_matmul_decrypt_decode_ms": decode_ms,
@@ -737,7 +685,7 @@ def gl2_path():
         "matrix_fhe_tpu_torch/csrc/gemm2x2.cu",
         "matrix_fhe_tpu/ops/pallas_cgemm.py:266",
         lambda: hm._gemm.kernel(*ops), lambda: hm._gemm.plain(*ops),
-        ops, **gemm2x2_work(hm._gemm, ops[0]))]
+        ops, gemm2x2_work(hm._gemm, ops[0]))]
     del ops, sy_b, sy_a, x_b, x_a
     k2 = ctx.xntt._mul_s
     a_rows = ctX.a.reshape(len(p.moduli), -1, 2 * n)
@@ -747,7 +695,7 @@ def gl2_path():
         "matrix_fhe_tpu_torch/csrc/ntt_mul_ntt.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1851",
         lambda: k2.kernel(a_rows, sk.s_mont), lambda: k2.plain(a_rows, sk.s_mont),
-        [k2.fwd, k2.inv, a_rows, sk.s_mont], **ntt_mul_ntt_work(k2, a_rows)))
+        [k2.fwd, k2.inv, a_rows, sk.s_mont], ntt_mul_ntt_work(k2, a_rows)))
     del a_rows
     # K1 over the 14-limb QP basis (55-bit P prime included) as relinearize
     # and keygen run it: the W-CRT of a [W, 2n, 2n] digit, and one 2n-point
@@ -759,14 +707,14 @@ def gl2_path():
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
         lambda: fwd_w.kernel(d_w), lambda: fwd_w.plain(d_w),
-        [fwd_w.table, d_w], **stage_work(fwd_w, d_w)))
+        [fwd_w.table, d_w], stage_work(fwd_w, d_w)))
     d_x = d_w.reshape(len(rc.qp_moduli), W * m, m)
     rows.append(check_kernel(
         f"stage (K1, QP X-NTT, {m} points)", "stage",
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
         lambda: fwd_x.kernel(d_x), lambda: fwd_x.plain(d_x),
-        [fwd_x.table, d_x], **stage_work(fwd_x, d_x)))
+        [fwd_x.table, d_x], stage_work(fwd_x, d_x)))
     del d_w, d_x
     # K4 on the encode's inverse tables (Encoder.idft2_exact and
     # WTransform.dft_inverse_pair) at [W, n, n]
@@ -988,7 +936,7 @@ def leveled_path():
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:460",
         lambda: fwd_x.kernel(d, tw), lambda: fwd_x.plain(d, tw),
-        [fwd_x.table, d, tw], **stage_work(fwd_x, d, twiddle=True))]
+        [fwd_x.table, d, tw], stage_work(fwd_x, d))]
     del d, tw
     d = random_residues(qp, (W, n * n), gen)
     rows.append(check_kernel(
@@ -997,7 +945,7 @@ def leveled_path():
         "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
         lambda: fwd_w.kernel(d), lambda: fwd_w.plain(d), [fwd_w.table, d],
-        **stage_work(fwd_w, d)))
+        stage_work(fwd_w, d)))
     split_ms = cuda_ms(lambda: fwd_w.split_digits(d), 5)
     log(f"[kernel] {rows[-1]['name']}: its split pass (launch key "
         f"stage_split) alone {split_ms:.3f} ms of the row's "
@@ -1016,7 +964,7 @@ def leveled_path():
         f"on no path)", "stage_tw_batched", "matrix_fhe_tpu_torch/csrc/stage.cu",
         "matrix_fhe_tpu/ops/pallas_ntt.py:460",
         lambda: bl.kernel(d, tw), lambda: bl.plain(d, tw), [bl.table, d, tw],
-        **stage_work(bl, d, twiddle=True))
+        stage_work(bl, d))
     del d, tw, bl
     torch.cuda.empty_cache()
 
@@ -1149,14 +1097,12 @@ def probe_path():
     return rows, summary
 
 
-def finalize_rows(rows, imads: float) -> None:
+def finalize_rows(rows) -> None:
     """bound_ms (the larger of bytes over the memory rate and each type of
-    operations over its peak; a 64-bit product is `imads` IMADs, "imad"
-    counts IMADs) and bound_by, for every row; where a row has an earlier
-    64-bit route (K1, K10a, K5), a [bound] line logs its byte and operation
-    bounds apart and that route's IMAD bound."""
+    operations over its peak; "imad" counts IMADs) and bound_by, for every
+    row, and a [bound] line with its byte and operation bounds apart."""
     peaks = {"int8": INT8_OPS_PER_S, "int32": INT32_OPS_PER_S,
-             "imad": IMAD_PER_S, "products": IMAD_PER_S / imads}
+             "imad": IMAD_PER_S}
     for row in rows:
         t_bytes = row.pop("bytes") / HBM_BYTES_PER_S
         work = row.pop("work")
@@ -1165,12 +1111,9 @@ def finalize_rows(rows, imads: float) -> None:
         row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         row.setdefault("library_ms", None)
-        if "imad_products" in row:
-            t_imad = row.pop("imad_products") * imads / IMAD_PER_S
-            log(f"[bound] {row['name']}: {row['ms']:.3f} ms; bytes "
-                f"{1e3 * t_bytes:.3f} ms, "
-                + ", ".join(f"{k} {1e3 * t:.3f} ms" for k, t in t_work.items())
-                + f"; earlier IMAD route's bound {1e3 * t_imad:.3f} ms")
+        log(f"[bound] {row['name']}: {row['ms']:.3f} ms; bytes "
+            f"{1e3 * t_bytes:.3f} ms, "
+            + ", ".join(f"{k} {1e3 * t:.3f} ms" for k, t in t_work.items()))
 
 
 def main() -> int:
@@ -1193,19 +1136,21 @@ def main() -> int:
     be.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     funcs = sass_functions()
-    imads, n_imad, n_prod = imads_per_product(funcs)
     k5_imads = k5_imads_per_product(funcs)
-    log(f"[sass] K6 inner loop (cgemm_kernel): {n_imad} 32-bit multiply-adds "
-        f"for {n_prod} 64 x 64 -> 128-bit products, {imads:.2f} a product; "
-        f"K5 four_step_reg at R = 16: {k5_imads[64]:.2f} IMADs on registers "
-        f"a Shoup product on 64-bit words, {k5_imads[32]:.2f} on 32-bit "
-        f"words; "
-        f"K1 stage_kernel: {tensor_core_ops(funcs, 'stage_kernel')} IGMMA "
-        f"(u8 wgmma) instructions, K2 ntt_mul_ntt_kernel: "
-        f"{tensor_core_ops(funcs, 'ntt_mul_ntt_kernel')} (u8), K7 "
-        f"gemm2x2_kernel: {tensor_core_ops(funcs, 'gemm2x2_kernel')} (u8), "
-        f"K4 fp_cmatmul_kernel: "
-        f"{tensor_core_ops(funcs, 'fp_cmatmul_kernel')} (s8) (cuobjdump -sass)")
+    igmma = {name: tensor_core_ops(funcs, kernel) for name, kernel in (
+        ("K1 stage_kernel (u8)", "stage_kernel"),
+        ("K2 ntt_mul_ntt_kernel (u8)", "ntt_mul_ntt_kernel"),
+        ("K4 fp_cmatmul_kernel (s8)", "fp_cmatmul_kernel"),
+        ("K6 cgemm_kernel (u8)", "cgemm_kernel"),
+        ("K7 gemm2x2_kernel (u8)", "gemm2x2_kernel"),
+        ("K12 coissue_kernel<mxu> (s8)", "coissue_kernelILi1E"),
+        ("K12 coissue_kernel<both> (s8)", "coissue_kernelILi3E"),
+        ("K12 coissue_kernel<dep> (s8)", "coissue_kernelILi4E"))}
+    log(f"[sass] K5 four_step_reg at R = 16: {k5_imads[64]:.2f} IMADs on "
+        f"registers a Shoup product on 64-bit words, {k5_imads[32]:.2f} on "
+        f"32-bit words; IGMMA (wgmma) instructions: "
+        + ", ".join(f"{k} {v}" for k, v in igmma.items())
+        + " (cuobjdump -sass)")
     t_path = time.perf_counter()
 
     p = get_params("ref")
@@ -1308,7 +1253,6 @@ def main() -> int:
     # -- path 2: the bench NTT (K5) ----------------------------------------
     summary = {"ref_roundtrip_ms": rt_ms, "ref_roundtrip_err": err_rt,
                "ref_step_api_err": err_steps, "max_memory_allocated": peak,
-               "imads_per_product": imads,
                "k5_imads_per_product": k5_imads}
     t_path = time.perf_counter()
     for bits in (35, 28):
@@ -1363,9 +1307,9 @@ def main() -> int:
         if row["name"].startswith("ntt_mul_ntt"):
             row["launches_by_path"] = k2_by_path
     log(f"[bound] IMAD peak {IMAD_PER_S:.4e} /s (64 a clock on each of 132 "
-        f"SMs at 1.98 GHz), {imads:.2f} IMADs per 64-bit product; K11 addmul "
-        f"measured {probe_summary['k11_addmul_steps_per_s']:.4e} steps/s")
-    finalize_rows(rows + [off_path], imads)
+        f"SMs at 1.98 GHz); K11 addmul measured "
+        f"{probe_summary['k11_addmul_steps_per_s']:.4e} steps/s")
+    finalize_rows(rows + [off_path])
     off_path.pop("key")
     log(f"[bound] {off_path['name']} (logged, not a path row): "
         + json.dumps(off_path))

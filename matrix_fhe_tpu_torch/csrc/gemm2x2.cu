@@ -101,47 +101,10 @@ struct Args {
 using mfhe::fence_regs;
 using mfhe::smem_desc;
 
-// Shared-memory address of the 8 bytes at contraction byte kb (a multiple
-// of 8) of row r in K-tiled operand `base`, K-tiles `tile` bytes apart.
-__device__ __forceinline__ uint32_t swz(uint32_t base, int tile, int r, int kb) {
-  return base + (kb / BK) * tile + r * BK +
-         ((((kb % BK) >> 4) ^ (r & 7)) << 4) + (kb & 8);
-}
-
-__device__ __forceinline__ void st_shared8(uint32_t addr, uint64_t v) {
-  asm volatile("st.shared.u64 [%0], %1;\n" ::"r"(addr), "l"(v));
-}
-
-// w[j] = byte j of x[0], ..., x[7], little-endian: an 8 x 8 byte
-// transpose as four 4 x 4 ones, 8 byte permutes each.
-__device__ __forceinline__ void byte_planes(const uint64_t (&x)[8], uint64_t (&w)[8]) {
-  uint32_t r[2][8];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)          // values 4 h .. 4 h + 3
-#pragma unroll
-    for (int part = 0; part < 2; ++part) {   // their bytes 4 part .. + 3
-      const uint32_t a = static_cast<uint32_t>(x[4 * h] >> (32 * part));
-      const uint32_t b = static_cast<uint32_t>(x[4 * h + 1] >> (32 * part));
-      const uint32_t c = static_cast<uint32_t>(x[4 * h + 2] >> (32 * part));
-      const uint32_t d = static_cast<uint32_t>(x[4 * h + 3] >> (32 * part));
-      const uint32_t t0 = __byte_perm(a, b, 0x5140), t1 = __byte_perm(c, d, 0x5140);
-      const uint32_t t2 = __byte_perm(a, b, 0x7362), t3 = __byte_perm(c, d, 0x7362);
-      r[h][4 * part] = __byte_perm(t0, t1, 0x5410);
-      r[h][4 * part + 1] = __byte_perm(t0, t1, 0x7632);
-      r[h][4 * part + 2] = __byte_perm(t2, t3, 0x5410);
-      r[h][4 * part + 3] = __byte_perm(t2, t3, 0x7632);
-    }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    w[j] = r[0][j] | (static_cast<uint64_t>(r[1][j]) << 32);
-}
-
-// x w mod q by Shoup's method, wp = floor(w 2^64 / q), w < q < 2^56.
-__device__ __forceinline__ uint64_t shoup_mul(uint64_t x, uint64_t w, uint64_t wp,
-                                              uint64_t q) {
-  const uint64_t r = x * w - __umul64hi(x, wp) * q;   // in [0, 2 q)
-  return r >= q ? r - q : r;
-}
+using mfhe::byte_planes;
+using mfhe::shoup_mul;
+using mfhe::st_shared8;
+using mfhe::swz;
 
 // U1's and U2's digits of contraction chunk ch on rows a0 .. a0 + R - 1,
 // transposed: row group g (64 rows) of U_i is K-tiles at abase + (G i + g)
@@ -202,60 +165,6 @@ __device__ __forceinline__ void build_v(const Args& p, const mfhe::LimbConsts& c
   }
 }
 
-// Fold and REDC this thread's 16 outputs of E_(wg, j) at columns b0 ..
-// b0 + 31; write them (first flush) or add them mod q to what an earlier
-// flush wrote, two neighbouring columns a 16-byte store where m is even.
-template <int D>
-__device__ __forceinline__ void epilogue(const int (&acc)[16 * D], const Args& p,
-                                         const mfhe::LimbConsts& c, long long lw,
-                                         int a0, int b0, int prod, bool first) {
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int abase = a0 + ((tid >> 5) & 3) * 16 + (lane >> 2);   // a0: 64 rows
-  const int bbase = b0 + 2 * (lane & 3);
-  uint64_t* out = p.E + (static_cast<long long>(prod) * p.L * p.W + lw) * p.m * p.m;
-  const bool pairs = (p.m & 1) == 0;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int a = abase + 8 * h;
-    if (a >= p.m) continue;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int b = bbase + 8 * t;
-      if (b >= p.m) continue;
-      uint64_t v[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        uint64_t hi, lo;
-        mfhe::fold<D>(acc, 4 * t + 2 * h + e, hi, lo);
-        v[e] = mfhe::mont_redc(hi, lo, c);
-      }
-      uint64_t* o = out + static_cast<long long>(a) * p.m + b;
-      if (pairs) {                       // b even, b + 1 < m
-        ulonglong2* dst = reinterpret_cast<ulonglong2*>(o);
-        if (!first) {
-          const ulonglong2 prev = *dst;
-          v[0] += prev.x;
-          v[1] += prev.y;
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (v[e] >= c.q) v[e] -= c.q;
-        }
-        *dst = make_ulonglong2(v[0], v[1]);
-        continue;
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (b + e >= p.m) continue;
-        if (!first) {
-          v[e] += o[e];
-          if (v[e] >= c.q) v[e] -= c.q;
-        }
-        o[e] = v[e];
-      }
-    }
-  }
-}
-
 template <int D>
 __device__ __forceinline__ void body(const Args& p, uint32_t sbase,
                                      const mfhe::LimbConsts& c, long long lw,
@@ -312,8 +221,9 @@ __device__ __forceinline__ void body(const Args& p, uint32_t sbase,
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
         fence_regs(acc);
         if ((ch + 1) % flush == 0 || ch == nch - 1)
-          epilogue<D>(acc, p, c, lw, a0 + 64 * g, cb * BN, 2 * wg + j,
-                      ch < flush);
+          mfhe::store_tile<D>(
+              acc, p.E + (static_cast<long long>(2 * wg + j) * p.L * p.W + lw) * p.m * p.m,
+              p.m, c, a0 + 64 * g, cb * BN, ch < flush);
       }
       __syncthreads();               // both warpgroups' products read the tiles
     }

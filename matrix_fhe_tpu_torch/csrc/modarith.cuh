@@ -1,10 +1,10 @@
 // Exact 64-bit modular arithmetic shared by the Hopper kernels.
 //
-// Residues are canonical int64 values below q < 2^56, read as uint64.  A
-// product of two residues is < 2^112, so a lazy 128-bit sum over a
-// contraction of K <= 2^16 terms is exact and is reduced once per output:
-// the high word modulo q (one 64-bit remainder), then a Montgomery REDC
-// with R = 2^64 and one Montgomery multiply by R^2 mod q to undo the 2^-64.
+// Residues are canonical int64 values below q < 2^56, read as uint64.  The
+// digit-plane GEMMs reduce each output's folded plane sums S < q 2^64 by
+// one Montgomery REDC with R = 2^64 (their operands carry the factor 2^64);
+// Montgomery products and Shoup products by a constant serve the twiddles,
+// the pointwise product of K2 and the pre-reductions of K6 and K7.
 #pragma once
 
 #include <cstdint>
@@ -42,20 +42,11 @@ __device__ __forceinline__ uint64_t mont_mul(uint64_t a, uint64_t b,
   return mont_redc(__umul64hi(a, b), a * b, c);
 }
 
-// (hi * 2^64 + lo) mod q for any 128-bit value.
-__device__ __forceinline__ uint64_t reduce128(uint64_t hi, uint64_t lo,
-                                              const LimbConsts& c) {
-  uint64_t t = mont_redc(hi % c.q, lo, c);  // value * 2^-64 mod q
-  return mont_mul(t, c.r2, c);              // * 2^128 * 2^-64
-}
-
-// (hi, lo) += a * b, unsigned 64 x 64 -> 128.
-__device__ __forceinline__ void mac_u128(uint64_t& hi, uint64_t& lo,
-                                         uint64_t a, uint64_t b) {
-  uint64_t plo = a * b;
-  uint64_t phi = __umul64hi(a, b);
-  lo += plo;
-  hi += phi + (lo < plo ? 1ull : 0ull);
+// x w mod q by Shoup's method, wp = floor(w 2^64 / q), w < q < 2^56.
+__device__ __forceinline__ uint64_t shoup_mul(uint64_t x, uint64_t w, uint64_t wp,
+                                              uint64_t q) {
+  const uint64_t r = x * w - __umul64hi(x, wp) * q;   // in [0, 2 q)
+  return r >= q ? r - q : r;
 }
 
 }  // namespace mfhe

@@ -1,8 +1,8 @@
 // Hopper warpgroup tensor-core products on 8-bit digits, unsigned or signed.
 //
 // wgmma8<D, S8>(acc, da, db, accumulate): one wgmma.mma_async
-// m64n(32 D)k32 .s32.u8.u8 (S8 false: the u8 digit planes of K1, K2, K7) or
-// .s32.s8.s8 (S8 true: K4's balanced s8 digits), A [64 x 32] and
+// m64n(32 D)k32 .s32.u8.u8 (S8 false: the u8 digit planes of K1, K2, K6,
+// K7) or .s32.s8.s8 (S8 true: K4's balanced s8 digits, K12's s8 dots), A [64 x 32] and
 // B [32 D x 32] both K-major in shared memory (descriptors da, db), 16 D s32
 // sums a thread; with `accumulate` 0 the sums are overwritten, else added
 // to.  The register lists are written out for D = 1..7 (N = 32..224), one
@@ -10,11 +10,14 @@
 // accumulator (PTX ISA, wgmma .m64nNk32): warp i of the warpgroup holds
 // rows 16 i .. 16 i + 15; a[4 b + 2 h + e] is row 16 i + lane / 4 + 8 h,
 // column 8 b + 2 (lane % 4) + e.  With them the helpers the kernels share
-// to fill their operand tiles (cp.async, the 128-byte-swizzle descriptor)
-// and to fold an output's u8 plane sums.
+// to fill their operand tiles (cp.async, the 128-byte-swizzle descriptor
+// and addresses, byte transposes) and to fold, reduce and store an
+// output's u8 plane sums.
 #pragma once
 
 #include <cstdint>
+
+#include "modarith.cuh"
 
 // One wgmma with N columns on operand type AB ("u8.u8" or "s8.s8"): REGS
 // names the 16 D accumulator operands, SC the operand of `accumulate`, DA
@@ -74,6 +77,98 @@ __device__ __forceinline__ void fold(const int (&a)[16 * D], int idx,
     const uint64_t tlo = x << (8 * j);
     lo += tlo;
     hi += (j ? x >> (64 - 8 * j) : 0) + (lo < tlo ? 1ull : 0ull);
+  }
+}
+
+// Shared-memory address of the 8 bytes at contraction byte kb (a multiple
+// of 8) of row r in a K-tiled operand at `base` (128-byte swizzle rows),
+// K-tiles `tile` bytes apart.
+__device__ __forceinline__ uint32_t swz(uint32_t base, int tile, int r, int kb) {
+  return base + (kb >> 7) * tile + r * 128 + ((((kb & 127) >> 4) ^ (r & 7)) << 4) +
+         (kb & 8);
+}
+
+__device__ __forceinline__ void st_shared8(uint32_t addr, uint64_t v) {
+  asm volatile("st.shared.u64 [%0], %1;\n" ::"r"(addr), "l"(v));
+}
+
+// w[j] = byte j of x[0], ..., x[7], little-endian: an 8 x 8 byte
+// transpose as four 4 x 4 ones, 8 byte permutes each (K6 and K7 cut their
+// operands' digit planes with it as they stage them).
+__device__ __forceinline__ void byte_planes(const uint64_t (&x)[8], uint64_t (&w)[8]) {
+  uint32_t r[2][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)          // values 4 h .. 4 h + 3
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {   // their bytes 4 part .. + 3
+      const uint32_t a = static_cast<uint32_t>(x[4 * h] >> (32 * part));
+      const uint32_t b = static_cast<uint32_t>(x[4 * h + 1] >> (32 * part));
+      const uint32_t c = static_cast<uint32_t>(x[4 * h + 2] >> (32 * part));
+      const uint32_t d = static_cast<uint32_t>(x[4 * h + 3] >> (32 * part));
+      const uint32_t t0 = __byte_perm(a, b, 0x5140), t1 = __byte_perm(c, d, 0x5140);
+      const uint32_t t2 = __byte_perm(a, b, 0x7362), t3 = __byte_perm(c, d, 0x7362);
+      r[h][4 * part] = __byte_perm(t0, t1, 0x5410);
+      r[h][4 * part + 1] = __byte_perm(t0, t1, 0x7632);
+      r[h][4 * part + 2] = __byte_perm(t2, t3, 0x5410);
+      r[h][4 * part + 3] = __byte_perm(t2, t3, 0x7632);
+    }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    w[j] = r[0][j] | (static_cast<uint64_t>(r[1][j]) << 32);
+}
+
+// Fold and REDC this thread's 16 outputs of a warpgroup's 64 x 32 tile
+// (rows a0 .. a0 + 63, columns b0 .. b0 + 31) of the m x m matrix `out`,
+// the d plane sums of each in acc (K6, K7); write them (first flush) or
+// add them mod q to what an earlier flush wrote, two neighbouring columns
+// a 16-byte store where m is even.
+template <int D>
+__device__ __forceinline__ void store_tile(const int (&acc)[16 * D], uint64_t* out,
+                                           int m, const LimbConsts& c, int a0,
+                                           int b0, bool first) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int abase = a0 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int bbase = b0 + 2 * (lane & 3);
+  const bool pairs = (m & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int a = abase + 8 * h;
+    if (a >= m) continue;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int b = bbase + 8 * t;
+      if (b >= m) continue;
+      uint64_t v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint64_t hi, lo;
+        fold<D>(acc, 4 * t + 2 * h + e, hi, lo);
+        v[e] = mont_redc(hi, lo, c);
+      }
+      uint64_t* o = out + static_cast<long long>(a) * m + b;
+      if (pairs) {                       // b even, b + 1 < m
+        ulonglong2* dst = reinterpret_cast<ulonglong2*>(o);
+        if (!first) {
+          const ulonglong2 prev = *dst;
+          v[0] += prev.x;
+          v[1] += prev.y;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (v[e] >= c.q) v[e] -= c.q;
+        }
+        *dst = make_ulonglong2(v[0], v[1]);
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (b + e >= m) continue;
+        if (!first) {
+          v[e] += o[e];
+          if (v[e] >= c.q) v[e] -= c.q;
+        }
+        o[e] = v[e];
+      }
+    }
   }
 }
 

@@ -5,7 +5,9 @@ with the JAX package's fast route as the only route (encode_pair /
 decode_pair there):
 
   encode: XY-IDFT sandwich (K4) -> W-IDFT (K4) -> quantize on the words
-          -> mod-q W-CRT forward (K1)
+          -> mod-q W-CRT forward (K1); for a Delta that is not a power of
+          two, the sandwich and the W-IDFT reconstruct f64 and the quantize
+          is llround(c Delta) mod q, as encode_pair there
   decode: scaled W-CRT inverse fused with the CRT compose (K3) -> W-DFT
           (K4) -> XY-DFT sandwich (K4) -> one f64 reconstruction
   decode with delta_override (Delta^2-scaled homomorphic products, whose
@@ -38,7 +40,13 @@ class BatchedEncoder:
 
     def encode_to_wntt_eval(self, m_re: torch.Tensor, m_im: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[W, n, n] f64 pair -> ([L, W, n, n], [L, W, n, n]) int64."""
+        """[W, n, n] f64 pair -> ([L, W, n, n], [L, W, n, n]) int64: on the
+        words when Delta is a power of two, else by llround(c Delta) mod q
+        after the f64 sandwich and W-IDFT (encode_pair there)."""
+        if not self.encoder.words_route:
+            xr, xi = self.encoder.idft2_exact(m_re, m_im)
+            rr, ri = self.encoder.quantize(*self.wt.dft_inverse_pair(xr, xi))
+            return self.wt.forward(rr), self.wt.forward(ri)
         W = m_re.shape[0]
         wr, wi, e = self.encoder.idft2_words(m_re, m_im)
         flat_r = tuple(w.reshape(W, -1) for w in wr)

@@ -4,8 +4,9 @@ Counterpart of matrix_fhe_tpu/models/encoder.py.  A 64x64 complex message
 is mapped to XY-coefficient space by V^-1 M V^-T (encoder.cu:329-501).  The
 port runs the JAX package's words-chained route: both halves of each
 sandwich are exact fixed-point matmuls (kernel K4) linked by exact
-integer shift-rounds, the encode quantize works on the words, and decode
-reconstructs f64 once at the end.  The Delta^2 decode of homomorphic
+integer shift-rounds, the encode quantize works on the words (Delta a
+power of two; any other Delta is quantized by `quantize`, llround(c Delta)
+mod q, after `idft2_exact`), and decode reconstructs f64 once at the end.  The Delta^2 decode of homomorphic
 products uses the exact big-int dequantize and `dft2_exact`, the sandwich
 with an f64 reconstruction after each K4 half (the JAX route with the
 fixed-point transforms on); the gl2 encode uses its inverse twin
@@ -26,6 +27,7 @@ from ..ops.ddfloat import words_shr_round
 from ..ops.fpmatmul import ExactComplexMatmul
 from ..ops.modmath import moduli_col
 from ..tables import GLTables, build_tables
+from .rng import llround
 
 F64 = torch.float64
 
@@ -129,12 +131,31 @@ class Encoder:
     # -- quantize ------------------------------------------------------------
 
     @property
-    def delta_bits(self) -> int:
+    def words_route(self) -> bool:
+        """True when Delta is a power of two, so that the quantize is an
+        exact shift of the fixed-point words (quantize_words)."""
         d = float(self.params.delta)
-        db = int(round(np.log2(d)))
-        if 2.0 ** db != d:
+        return 2.0 ** round(np.log2(d)) == d
+
+    @property
+    def delta_bits(self) -> int:
+        if not self.words_route:
             raise ValueError("the words route needs a power-of-two Delta")
-        return db
+        return int(round(np.log2(float(self.params.delta))))
+
+    def quantize(self, c_re: torch.Tensor, c_im: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """llround(c * Delta) split into RNS limbs: f64 [...] -> int64
+        residues [L, ...] for re and im (Encoder.quantize there,
+        quantize_soa_kernel, encoder.cu:36-50), for any Delta; exact while
+        |c * Delta| < 2^52."""
+        delta = float(self.params.delta)
+        outs = []
+        for c in (c_re, c_im):
+            v = llround(c * delta)
+            outs.append(v[None] % moduli_col(self.params.moduli, v.dim(),
+                                             v.device))
+        return outs[0], outs[1]
 
     def quantize_words(self, words_re, words_im, e_scale):
         """round(c * Delta) split into RNS limbs straight from the words:

@@ -91,20 +91,14 @@ class Gl2Context:
 
     # -- encode / decode -----------------------------------------------------
 
-    def _quantize_real(self, c: torch.Tensor) -> torch.Tensor:
-        """llround(c * Delta) -> RNS residues [L, ...] (integer-exact while
-        |c * Delta| < 2^52)."""
-        v = refrng.llround(c * float(self.params.delta))
-        return v[None] % mm.moduli_col(self.params.moduli, v.dim(), v.device)
-
     def encode(self, m_re: torch.Tensor, m_im: torch.Tensor) -> torch.Tensor:
         """[W, n, n] complex pair -> packed plaintext [L, W, n, 2n] in
         (W-eval, X2-coeff): the batched encode with the re/im split
         replaced by the i = X^n slot packing."""
         xr, xi = self.encoder.idft2_exact(m_re, m_im)   # per-lane XY-IDFT
         cr, ci = self.wt.dft_inverse_pair(xr, xi)        # complex W-IDFT
-        packed = torch.cat([cr, ci], dim=-1)             # [W, n, 2n] f64
-        return self.wt.forward(self._quantize_real(packed))
+        rr, ri = self.encoder.quantize(cr, ci)           # llround(c Delta) mod q
+        return self.wt.forward(torch.cat([rr, ri], dim=-1))   # [L, W, n, 2n]
 
     def decode(self, ev: torch.Tensor, delta_override: float | None = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:

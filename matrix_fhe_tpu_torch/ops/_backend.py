@@ -54,10 +54,11 @@ _SIGNATURES = {
     "mf_fp_cmatmul": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mf_four_step": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                      _P],
-    "mf_cgemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mf_cgemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mf_gemm2x2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mf_u32_chain": [_P, _P, _LL, _I, _I, _P],
-    "mf_coissue": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mf_coissue": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _P],
     "mf_ntt_mul_ntt_smem": [_I],
     "mf_stage_layout": [_I, _I, _I, ctypes.POINTER(_I)],
     "mf_fp_layout": [_I, _I, ctypes.POINTER(_I)],

@@ -10,9 +10,12 @@ contraction runs over the last axis of both:
     re[l, w, r, c] = scale * sum_t (Ar Br - Ai Bi)[r, t; c, t] mod q_l
     im[l, w, r, c] = scale * sum_t (Ar Bi + Ai Br)[r, t; c, t] mod q_l
 
-A CUDA tensor takes csrc/cgemm.cu; a CPU tensor takes the plain version,
-the JAX XLA route's order of operations (four real modular GEMMs, mod-q
-sub/add, times scale) on exact float64-digit matmuls (ops/modmatmul.py).
+A CUDA tensor takes csrc/cgemm.cu (u8 digit-plane GEMMs on the int8 tensor
+cores, B pre-reduced per digit of A inside the kernel with scale folded in,
+re and im on the two warpgroups of a block); a CPU tensor takes the plain
+version, the JAX XLA route's order of operations (four real modular GEMMs,
+mod-q sub/add, times scale) on exact float64-digit matmuls
+(ops/modmatmul.py).
 
 K7 is the gl2 ciphertext GEMM's tensor step (Gemm2x2, counterpart of
 matrix_fhe_tpu/ops/pallas_cgemm.py SlicedGemm2x2): four real modular GEMMs
@@ -41,14 +44,32 @@ from .modmatmul import modmatmul
 I64 = torch.int64
 
 
+def shoup_digit_consts(moduli: Sequence[int], scale: int, device
+                       ) -> torch.Tensor:
+    """[L, 8, 2] int64: per limb and digit c, the Shoup pair of K6's and
+    K7's pre-reduction of their B / V operand, w_c = scale 2^(8 c) 2^64 mod q
+    and floor(w_c 2^64 / q)."""
+    w = [[scale * pow(2, 8 * c + 64, q) % q for c in range(8)]
+         for q in moduli]
+    return torch.tensor([[[wc, to_signed64((wc << 64) // q)] for wc in row]
+                         for row, q in zip(w, moduli)], dtype=I64,
+                        device=device)
+
+
 class CGemm:
-    """K6 for one modulus chain and one scale, tables on `device`."""
+    """K6 for one modulus chain and one scale, constants on `device`.
+
+    The kernel pre-reduces B per digit c of A, B w_c mod q with
+    w_c = scale 2^(8 c) 2^64 mod q by Shoup's method (`vconsts`, as K7's),
+    and -Bi w_c mod q as q - (Bi w_c mod q), so one Montgomery REDC of each
+    output's folded digit-plane sums gives re and im with scale in."""
 
     def __init__(self, moduli: Sequence[int], scale: int, device):
         self.moduli = tuple(int(q) for q in moduli)
         self.scale = int(scale)
         self.bits = _bits(self.moduli, 1)
-        self.consts = kernel_consts(self.moduli, device, scale=self.scale)
+        self.consts = kernel_consts(self.moduli, device)
+        self.vconsts = shoup_digit_consts(self.moduli, self.scale, device)
         self.q = moduli_col(self.moduli, 3, device)
         self.scale_q = moduli_col([self.scale % q for q in self.moduli], 3,
                                   device)
@@ -77,15 +98,13 @@ class CGemm:
             raise ValueError(f"operands must be [L, W, n, n], got {tuple(a_re.shape)}")
         W, n = a_re.shape[1], a_re.shape[2]
         if n >= 1 << 15:
-            raise ValueError(f"contraction of {n} terms: the 128-bit sums need n < 2^15")
-        if L * W > 65535:
-            raise ValueError(f"{L} limbs x {W} lanes exceed the kernel grid (65535)")
+            raise ValueError(f"contraction of {n} terms: the kernel takes n < 2^15")
         for name, t in (("a_re", a_re), ("a_im", a_im), ("b_re", b_re),
                         ("b_im", b_im)):
             be.check(t, name, I64, (L, W, n, n))
         out = torch.empty((2, L, W, n, n), dtype=I64, device=a_re.device)
         be.launch("cgemm", "mf_cgemm", a_re.device, a_re, a_im, b_re, b_im,
-                  self.consts, out[0], out[1], L, W, n)
+                  self.consts, self.vconsts, out[0], out[1], L, W, n)
         return out[0], out[1]
 
 
@@ -101,12 +120,8 @@ class Gemm2x2:
         self.moduli = tuple(int(q) for q in moduli)
         self.scale = int(scale)
         self.bits = _bits(self.moduli, 1)
-        self.consts = kernel_consts(self.moduli, device, scale=self.scale)
-        w = [[self.scale * pow(2, 8 * c + 64, q) % q for c in range(8)]
-             for q in self.moduli]
-        self.vconsts = torch.tensor(
-            [[[wc, to_signed64((wc << 64) // q)] for wc in row]
-             for row, q in zip(w, self.moduli)], dtype=I64, device=device)
+        self.consts = kernel_consts(self.moduli, device)
+        self.vconsts = shoup_digit_consts(self.moduli, self.scale, device)
         self.dmax = max(map(digit_count, self.moduli))
         self.q = moduli_col(self.moduli, 3, device)
         self.scale_q = moduli_col([self.scale % q for q in self.moduli], 3,

@@ -99,15 +99,13 @@ def powers(root: int, count: int, q: int) -> np.ndarray:
     return out.reshape(-1)[:count]
 
 
-def kernel_consts(moduli: Sequence[int], device, scale: int = 1) -> torch.Tensor:
+def kernel_consts(moduli: Sequence[int], device) -> torch.Tensor:
     """[L, 3] int64 (bit patterns of uint64) per-limb constants
-    (q, -q^-1 mod 2^64, scale * 2^128 mod q), the layout the kernels read.
-    The kernels' final reduction multiplies by the third constant, so a
-    `scale` other than 1 is folded into every output for free."""
+    (q, -q^-1 mod 2^64, 2^128 mod q), the layout the kernels read."""
     rows = []
     for q in moduli:
         c = MontConsts.make(int(q))
-        rows.append([c.q, c.qinv_neg, int(scale) % c.q * c.r2 % c.q])
+        rows.append([c.q, c.qinv_neg, c.r2])
     arr = np.array(rows, dtype=np.uint64).view(np.int64)
     return torch.from_numpy(arr.copy()).to(device)
 

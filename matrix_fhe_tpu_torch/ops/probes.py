@@ -7,7 +7,8 @@ int32 tensors with the same bits.  As everywhere in the port, a CPU tensor
 runs the plain PyTorch version, which computes in int64 with 32-bit masks
 (and K12's dots as float64 matmuls of the int8 values, exact since
 |sum| <= reps * K * 100^2 < 2^31), and a CUDA tensor launches the kernel
-in csrc/micro_vpu.cu or csrc/micro_coissue.cu.
+in csrc/micro_vpu.cu or csrc/micro_coissue.cu (K12: s8 wgmma products with
+the u32 rounds between their commit and wait).
 """
 
 from __future__ import annotations
@@ -134,19 +135,24 @@ def coissue_plain(d8, t8, a, b, mode: str, reps: int):
 
 
 def coissue_kernel(d8, t8, a, b, mode: str, reps: int):
+    """K12 on CUDA tensors: one launch is a transpose of t8 to K-major
+    (scratch [Pt, N, K], not for "vpu") and the probe kernel."""
     if d8.dim() != 4 or t8.dim() != 4:
         raise ValueError("d8 must be [G, P, N, K] and t8 [1, Pt, K, N]")
     G, P, N, K = d8.shape
     Pt = t8.shape[1]
-    if N % 64 or K % 32:
-        raise ValueError(f"K12 takes N % 64 == 0 and K % 32 == 0, "
+    if N % 128 or K % 32 or K == 0:
+        raise ValueError(f"K12 takes N % 128 == 0 and K % 32 == 0, "
                          f"not N = {N}, K = {K}")
     be.check(d8, "d8", torch.int8, (G, P, N, K))
     be.check(t8, "t8", torch.int8, (1, Pt, K, N))
     be.check(a, "a", I32, (G, N, N))
     be.check(b, "b", I32, (G, N, N))
+    if any(t.data_ptr() % 16 for t in (d8, t8, a, b)):
+        raise ValueError("K12 takes 16-byte aligned tensors")
+    t8t = torch.empty((Pt, N, K), dtype=torch.int8, device=a.device)
     o32 = torch.empty((G, N, N), dtype=I32, device=a.device)
     ou = torch.empty((G, N, N), dtype=I32, device=a.device)
-    be.launch("micro_coissue", "mf_coissue", a.device, d8, t8, a, b, o32, ou,
-              G, N, K, P, Pt, int(reps), COISSUE_MODES[mode])
+    be.launch("micro_coissue", "mf_coissue", a.device, d8, t8, t8t, a, b,
+              o32, ou, G, N, K, P, Pt, int(reps), COISSUE_MODES[mode])
     return o32, ou

@@ -6,6 +6,8 @@ on, MFHE_FP_TRANSFORMS=1, and the Pallas kernels in interpret mode).  The
 same numpy messages go through both.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -123,3 +125,69 @@ def test_quantize_words_contract_guard():
         enc.quantize_words(words, words, torch.tensor(enc.delta_bits))
     rr, _ = enc.quantize_words(words, words, torch.tensor(enc.delta_bits + 8))
     assert rr.shape == (len(enc.params.moduli), 2, 8) and rr.any()
+
+
+# -- a Delta that is not a power of two ------------------------------------------
+
+DELTA3 = 3.0 * 2 ** 10
+
+
+@pytest.fixture(scope="module")
+def delta3():
+    """Tiny with Delta = 3 * 2^10 in both packages: the JAX encode_pair
+    takes its f64 route (delta_bits is None there), the port
+    encode_to_wntt_eval its llround route.  The JAX side runs with an exact
+    exp2, as test_decode_bit_identical_with_exact_exp2 does.  Returns (port
+    encoder, message, JAX residues (re, im), JAX decode of them)."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("MFHE_FP_TRANSFORMS", "1")
+    mp.setattr(jnp, "exp2", lambda e: jnp.ldexp(
+        jnp.ones_like(e), e.astype(jnp.int32)))
+    try:
+        p = dataclasses.replace(jax_params(PRESET), delta=DELTA3)
+        jbe = JaxEncoder(p, wt=JaxW(p, use_pallas=True, fast_float=True),
+                         fast_float=True)
+        assert jbe.encoder.delta_bits is None and jbe.encoder._fp_vi is not None
+        re, im = _message(p)
+        pairs = jbe.encode_pair(jnp.asarray(re), jnp.asarray(im))
+        want = [np.asarray(w) for w in jbe.decode_pair(*pairs)]
+    finally:
+        mp.undo()
+    res = [np.asarray(jmm.pair_join(lo, hi)) for lo, hi in pairs]
+    tbe = BatchedEncoder(dataclasses.replace(get_params(PRESET), delta=DELTA3),
+                         device="cpu")
+    return tbe, (re, im), res, want
+
+
+def test_encode_any_delta_matches_jax(delta3):
+    """At Delta = 3 * 2^10 the port encodes (idft2_exact, dft_inverse_pair,
+    llround(c Delta) mod q, W-CRT) to JAX's residues, bit for bit."""
+    tbe, (re, im), res, _ = delta3
+    assert not tbe.encoder.words_route
+    pr, pi = tbe.encode_to_wntt_eval(torch.from_numpy(re), torch.from_numpy(im))
+    np.testing.assert_array_equal(pr.numpy().view(np.uint64), res[0])
+    np.testing.assert_array_equal(pi.numpy().view(np.uint64), res[1])
+
+
+def test_roundtrip_any_delta_matches_jax(delta3):
+    """The port's decode of its own encode at Delta = 3 * 2^10 is within
+    1e-9 of JAX's decode of JAX's encode, and within 1e-2 of the message
+    (JAX's own error there is 6.39e-3)."""
+    tbe, (re, im), _, want = delta3
+    dr, di = tbe.decode_pair(*tbe.encode_pair(torch.from_numpy(re),
+                                              torch.from_numpy(im)))
+    assert np.abs(dr.numpy() - want[0]).max() <= 1e-9
+    assert np.abs(di.numpy() - want[1]).max() <= 1e-9
+    assert np.hypot(dr.numpy() - re, di.numpy() - im).max() < 1e-2
+
+
+def test_words_route_needs_power_of_two(delta3):
+    """Power-of-two presets take the words route; at Delta = 3 * 2^10 the
+    words quantize, which needs log2(Delta), refuses to run."""
+    from matrix_fhe_tpu_torch.models.encoder import Encoder
+
+    assert Encoder(get_params(PRESET), device="cpu").words_route
+    enc = delta3[0].encoder
+    words = (torch.ones(2, 8, dtype=torch.int64),) * 4
+    with pytest.raises(ValueError, match="power-of-two"):
+        enc.quantize_words(words, words, torch.tensor(20))

@@ -1,7 +1,7 @@
 """Kernels K1-K4, K7, K10a's twiddle form, K11 and K12 of the PyTorch port
 against the JAX package's Pallas kernels, and the methods of K1, K2, K3,
-K4 and K7's CUDA kernels transcribed to run on the CPU (K2's and K7's with
-the kernels' Montgomery and Shoup arithmetic on uint64 words).
+K4, K6 and K7's CUDA kernels transcribed to run on the CPU (K2's, K6's and
+K7's with the kernels' Montgomery and Shoup arithmetic on uint64 words).
 
 On the CPU each port wrapper runs its plain PyTorch version; the JAX side
 runs the Pallas kernels in interpret mode (SlicedStage, SlicedNttMulNtt,
@@ -898,6 +898,117 @@ def test_k7_digit_planes_match_sliced_interpret(monkeypatch):
         np.testing.assert_array_equal(g, np.asarray(w))
 
 
+# -- K6's method, transcribed from csrc/cgemm.cu -------------------------------
+
+def _digit_plane_cgemm(g, ar, ai, br, bi, flush_terms=4096):
+    """cgemm_kernel on uint64 arrays A [L, W, R, T] and B [L, W, C, T]: per
+    limb B pre-reduced per digit c of A by a Shoup product with the kernel's
+    pair (w_c, w_c'), w_c = scale 2^(8 c) 2^64 mod q, and -Bi w_c mod q as
+    q - (Bi w_c mod q) (checked equal to Bi's product with the pair of
+    q - w_c); A's digits of Ar (h = 0) and Ai (h = 1) on the contraction
+    index (c, h, t) against re's planes of Br^(c), -Bi^(c) and im's of
+    Bi^(c), Br^(c); d u8 GEMMs into s32 sums over chunks of `flush_terms`
+    contraction terms (h, t), each folded, reduced by one REDC and summed
+    mod q.  Returns (re, im) [L, W, R, C]."""
+    L, W, R, T = ar.shape
+    C = br.shape[2]
+    vc = u64(g.vconsts)
+    out = np.empty((2, L, W, R, C), np.uint64)
+    per = flush_terms // 2                      # terms t a flush
+    for l, q in enumerate(g.moduli):
+        d, qq = digit_count(q), np.uint64(q)
+        total = np.zeros((2, W, R, C), np.uint64)
+        for t0 in range(0, T, per):
+            sl = slice(t0, t0 + per)
+
+            def cut(x, c):                      # digit c of x, [W, rows, t]
+                return (x >> np.uint64(8 * c)) & np.uint64(255)
+
+            def plane(halves, j):               # B plane j, index (c, h, t)
+                return np.concatenate([cut(halves[h][c], j) for c in range(d)
+                                       for h in (0, 1)], axis=2)
+
+            a_dig = np.concatenate([cut(x[l, :, :, sl], c) for c in range(d)
+                                    for x in (ar, ai)], axis=2)
+            brc, bic, neg = [], [], []
+            for c in range(d):
+                w, wp = int(vc[l, c, 0]), int(vc[l, c, 1])
+                brc.append(_shoup_mul(br[l, :, :, sl], w, wp, q))
+                bic.append(_shoup_mul(bi[l, :, :, sl], w, wp, q))
+                neg.append(np.where(bic[-1] != 0, qq - bic[-1], 0)
+                           .astype(np.uint64))
+                qw = q - w
+                np.testing.assert_array_equal(neg[-1], _shoup_mul(
+                    bi[l, :, :, sl], qw, (qw << 64) // q, q))
+            for k, halves in enumerate(((brc, neg), (bic, brc))):
+                diags = []
+                for j in range(d):
+                    diags.append(_u8_gemm(a_dig.astype(np.float64),
+                                          plane(halves, j).astype(np.float64)
+                                          .transpose(0, 2, 1)))
+                total[k] = (total[k] + _redc(*_fold(diags), q)) % qq
+        out[:, l] = total
+    return out
+
+
+def _k6_case(moduli, lanes, n, scale, fill, seed):
+    from matrix_fhe_tpu_torch.ops.cgemm import CGemm
+
+    rng = np.random.default_rng(seed)
+    g = CGemm(moduli, scale, "cpu")
+    if fill == "max":
+        ops = [np.stack([np.full((lanes, n, n), q - 1, dtype=np.uint64)
+                         for q in moduli]) for _ in range(4)]
+    else:
+        ops = [residues(rng, moduli, (lanes, n, n)) for _ in range(4)]
+    return g, ops
+
+
+K6_CASES = {
+    "tiny": (P.moduli, P.phi, P.n, P.n, "random"),
+    "ref-like": (REF2, 2, 64, 64, "random"),
+    "max-55": (REF_P_MODULI[:1] + REF2[:1], 2, 64, 12345, "max"),
+    "ragged-37": (MIXED, 2, 37, 7, "random"),
+    "ragged-70": (MIXED, 2, 70, 70, "random"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+def test_k6_digit_planes_match_plain(case):
+    """K6's method (B pre-reduced per digit of A with scale folded in, the
+    subtraction as q - Bi^(c), A's digits of Ar and Ai on one contraction,
+    one REDC an output) equals CGemm.plain, bit for bit: at tiny, at the ref
+    trace shape n = 64 on two limbs, with every entry q - 1 on a 55 +
+    45-bit chain, and at n = 37 and 70 on 35- to 55-bit limbs."""
+    g, ops = _k6_case(*K6_CASES[case], seed=63)
+    want = g.plain(*(i64(x) for x in ops))
+    got = _digit_plane_cgemm(g, *ops)
+    for k in range(2):
+        np.testing.assert_array_equal(got[k], u64(want[k]))
+
+
+def test_k6_digit_planes_flush():
+    """Contractions past one flush: n = 70 in chunks of 16 terms (8 of t)
+    on random data against CGemm.plain; and 3 x 3 outputs of t = 4,100
+    terms (8,200 contraction terms, past 4,096) at 7 digits with every
+    entry q - 1 (the largest s32 sums, checked) against Python integers."""
+    g, ops = _k6_case(MIXED, 1, 70, 5, "random", seed=64)
+    want = g.plain(*(i64(x) for x in ops))
+    got = _digit_plane_cgemm(g, *ops, flush_terms=16)
+    for k in range(2):
+        np.testing.assert_array_equal(got[k], u64(want[k]))
+
+    from matrix_fhe_tpu_torch.ops.cgemm import CGemm
+
+    q, scale, t = REF_P_MODULI[0], 3, 4100
+    g = CGemm((q,), scale, "cpu")
+    ops = [np.full((1, 1, 3, t), q - 1, dtype=np.uint64) for _ in range(4)]
+    got = _digit_plane_cgemm(g, *ops)
+    re = scale * t * ((q - 1) ** 2 - (q - 1) ** 2) % q
+    im = scale * t * 2 * (q - 1) ** 2 % q
+    assert (got[0] == re).all() and (got[1] == im).all()
+
+
 # -- exact helpers around the kernels ------------------------------------------
 
 @pytest.mark.parametrize("sh", [0, 1, 7, 31, 32, 33, 45, 63, 64, 70])
@@ -1242,10 +1353,26 @@ def test_cuda_four_step_ntt_matches_plain(cuda, bits, n, nega, limbs, batch,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("preset", ["tiny", "small"])
+@pytest.mark.parametrize("preset", ["tiny", "small"] + sorted(K6_CASES)
+                         + ["flush"])
 def test_cuda_cgemm_matches_plain(cuda, preset):
+    """K6 at a preset's trace shape and at n = 70 with odd W on a 55 + 45 +
+    35-bit chain; at the cases of test_k6_digit_planes_match_plain; and at
+    n = 2,100 (4,200 contraction terms, past one flush of the s32 sums) with
+    every entry q - 1 at 7 digits."""
     from matrix_fhe_tpu_torch.ops.cgemm import CGemm
 
+    if preset not in ("tiny", "small"):
+        spec = ((REF_P_MODULI[:1], 1, 2100, 3, "max") if preset == "flush"
+                else K6_CASES[preset])
+        g, ops = _k6_case(*spec, seed=65)
+        gemm = CGemm(g.moduli, g.scale, cuda)
+        ops = [i64(x).to(cuda) for x in ops]
+        got = _launched("cgemm", lambda: gemm(*ops))
+        want = gemm.plain(*ops)
+        assert torch.equal(got[0].cpu(), want[0].cpu())
+        assert torch.equal(got[1].cpu(), want[1].cpu())
+        return
     p = get_params(preset)
     rng = np.random.default_rng(17)
     wide = REF_P_MODULI[:1] + get_params("ref").moduli[:2]   # 55, 45, 35 bits
@@ -1394,3 +1521,25 @@ def test_cuda_coissue_matches_plain(cuda, mode):
                         lambda: probes.coissue(d8, t8, a, b, mode, reps))
         want = probes.coissue_plain(d8, t8, a, b, mode, reps)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [1, 2, 8])
+@pytest.mark.parametrize("grid", [4, 64])
+@pytest.mark.parametrize("mode", ["dma", "mxu", "vpu", "both", "dep",
+                                  "dma+mxu"])
+def test_cuda_coissue_grids_and_reps(cuda, mode, grid, reps):
+    """K12 at the script's N = 256, K = 1280 on grids of 4 and 64 cells,
+    reps 1, 2 and 8 over P = 3 planes of d8 (no reps count a multiple of
+    P) and Pt = 2 of t8."""
+    gen = torch.Generator(device=cuda).manual_seed(30 + reps)
+    d8, t8 = (torch.randint(-100, 100, shape, generator=gen,
+                            dtype=torch.int8, device=cuda)
+              for shape in ((grid, 3, 256, 1280), (1, 2, 1280, 256)))
+    a, b = (torch.randint(-(1 << 31), 1 << 31, (grid, 256, 256),
+                          generator=gen, dtype=torch.int32, device=cuda)
+            for _ in range(2))
+    got = _launched("micro_coissue",
+                    lambda: probes.coissue(d8, t8, a, b, mode, reps))
+    want = probes.coissue_plain(d8, t8, a, b, mode, reps)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
