@@ -10,7 +10,16 @@ and read just after:
 
   1. the ref-preset HE roundtrip (init_he_backend on "cuda", keygen,
      roundtrip, and encode -> encrypt_pair -> decrypt_and_decode), kernels
-     K1-K4, max error < 1e-4;
+     K1-K4, max error < 1e-4; then, outside the counted run, the
+     roundtrip's phase table (scripts.rt_phases: encode, mul_s, combine,
+     decode, their sum and the fused time), a ref ciphertext and the
+     secret key through utils.serialization (saved, loaded onto the card,
+     decrypted bit for bit), K1 against the independent C++ oracle
+     (native/golden: the X-NTT polymul and the W-CRT matvec on a
+     Vandermonde built from the moduli, at every ref limb), the lane
+     encoder, inverse_scaled and the centered W-CRT oracle on the card, and
+     one roundtrip under utils.profiler.trace (the trace must hold its
+     annotate span and a K2 kernel event);
   2. the bench NTT, N = 2^16, L = 16, B = 128 at 35- and 28-bit primes
      (FourStepNTT forward / inverse, kernel K5 on 64-bit words at 35 bits,
      32-bit words at 28): NTT/s over chained forwards, and
@@ -23,7 +32,12 @@ and read just after:
      switch keys, encode, encrypt, tensor (K7), relinearize, decrypt and the
      Delta^2 decode (K1, K2 at 2n = 128, K4), error < 2 base_err + 0.1
      where base_err is the two-sided opening's; phase times and memory;
-     then a tiny gl2 GEMM on the card against the CPU plain path;
+     then a tiny gl2 GEMM on the card against the CPU plain path; then
+     Gl2Conj at ref on the same context, P basis and secret key (its key,
+     encrypt, conjugate, decrypt, decode, counted apart: K1, K10a's twiddle
+     form, K2), max |dec - conj(X)| < 1e-4, keygen and apply times, a
+     tiny conjugation on the card against the CPU, and K10a's twiddle form
+     at the conjugation's 128-point digit-step shape;
   5. key switching and the leveled chain at ref (LeveledChain, the preset's
      P, dnum = 4): examples/relinearize.py (keygen, two encrypts,
      multiply_relinearize, noise < 2^25), examples/leveled.py's depth-2
@@ -50,8 +64,11 @@ the same buffers, in turns).  For every row a [bound] line logs the byte
 and operation bounds apart; K3's parts (split, GEMM, compose) and K4's
 split pass are timed apart on [kernel] lines, and so is K2's function as
 two launches (K10a's twiddle form forward with s as the twiddle, then
-K1's inverse), the yardstick of its fusion.  K2's rows carry its launches
-on every path that runs it (`launches_by_path`).  The SASS check fails if
+K1's inverse), the yardstick of its fusion.  The rows of K2, K1 and K10a's
+twiddle form carry their launches on every path (`launches_by_path`, the
+conjugation of path 4 as "4_gl2_conj"); K10a's twiddle-form rows carry only
+the path that runs their shape (path 5 at 64 points, the conjugation at
+128).  The SASS check fails if
 a kernel whose products run on the tensor cores (K1, K2, K4, K6, K7, and
 K12's mxu, both and dep instantiations) has no wgmma instruction.
 Fails (nonzero exit, no result line) without a CUDA device, on a build or
@@ -755,6 +772,14 @@ def gl2_path():
         raise AssertionError("tiny gl2 GEMM on the card differs from the CPU path")
     log("[check] tiny gl2 GEMM (tensor, relinearize, decode): card == CPU "
         "plain path, bit for bit")
+    del gr_cpu, gr_gpu, want, got, ks_c, cts_c
+
+    # -- Gl2Conj at ref on this path's context, RelinContext and key -------
+    t_conj = time.perf_counter()
+    conj_row, conj_summary, conj_launches, _ = gl2_conj_path(ctx, hm, rc, sk,
+                                                             X, gen)
+    rows.append(conj_row)
+    conj_summary["ref_conj_wall_s"] = time.perf_counter() - t_conj
 
     summary = {"ref_gl2_err": err, "ref_gl2_base_err": base_err,
                "ref_gl2_first_call_s": first_s,
@@ -762,7 +787,8 @@ def gl2_path():
                "ref_gl2_max_memory_allocated": peak,
                "ref_gl2_memory_above_held": peak - held}
     summary.update({f"ref_gl2_{k}_ms": v for k, v in phases.items()})
-    return rows, summary, launches
+    summary.update(conj_summary)
+    return rows, summary, launches, conj_launches
 
 
 def leveled_path():
@@ -937,6 +963,7 @@ def leveled_path():
         "matrix_fhe_tpu/ops/pallas_ntt.py:460",
         lambda: fwd_x.kernel(d, tw), lambda: fwd_x.plain(d, tw),
         [fwd_x.table, d, tw], stage_work(fwd_x, d))]
+    rows[0]["paths"] = ("5_keyswitch",)
     del d, tw
     d = random_residues(qp, (W, n * n), gen)
     rows.append(check_kernel(
@@ -1097,6 +1124,299 @@ def probe_path():
     return rows, summary
 
 
+def serialization_check(ctx, ct_re, ct_im, sk) -> dict:
+    """A ref ciphertext (the pair's real part) and the secret key through
+    utils.serialization: saved to a temporary directory, loaded onto the
+    card, equal to the originals, and the pair decrypted and decoded with
+    the loaded ciphertext and key bit for bit as with the originals."""
+    import tempfile
+
+    from matrix_fhe_tpu_torch.utils import serialization as ser
+
+    p = ctx.params
+    want = ctx.decrypt_and_decode(ct_re, ct_im, sk)
+    with tempfile.TemporaryDirectory() as d:
+        paths = [os.path.join(d, f) for f in ("re.npz", "sk.npz")]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ser.save_ciphertext(paths[0], ct_re, p)
+        ser.save_secret_key(paths[1], sk, p)
+        t1 = time.perf_counter()
+        l_re = ser.load_ciphertext(paths[0], p)
+        l_sk = ser.load_secret_key(paths[1], p)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = sum(os.path.getsize(f) for f in paths)
+    got = ctx.decrypt_and_decode(l_re, ct_im, l_sk)
+    same = all(torch.equal(a, b) for a, b in zip(
+        (l_re.b, l_re.a, l_sk.s_mont), (ct_re.b, ct_re.a, sk.s_mont)))
+    same = same and all(torch.equal(a, b) for a, b in zip(got, want))
+    raw = nbytes([ct_re.b, ct_re.a, sk.s_mont])
+    log(f"[serialize] ref ciphertext + secret key: {raw} B of residues "
+        f"-> {size} B of .npz; save {t1 - t0:.3f} s, load onto the card "
+        f"{t2 - t1:.3f} s; loaded objects decrypt and decode bit for bit: "
+        f"{same}")
+    if not same:
+        raise AssertionError("serialized ref ciphertexts / key differ after load")
+    return {"ref_serialize_save_s": t1 - t0, "ref_serialize_load_s": t2 - t1,
+            "ref_serialize_bytes": size, "ref_serialize_raw_bytes": raw}
+
+
+def w_vandermonde(p, q: int) -> np.ndarray:
+    """The W-CRT forward matrix mod q, V[w][r] = eta^(exp_w r), built from
+    the modulus and the preset's exponents alone: eta = g^((q-1)/p) for the
+    smallest g >= 2 of exact order p = f1 f2 (HE.cu:119-133)."""
+    f1, f2 = p.p_factors
+    for g in range(2, q):
+        eta = pow(g, (q - 1) // p.p, q)
+        if (eta != 1 and pow(eta, p.p, q) == 1
+                and pow(eta, p.p // f1, q) != 1 and pow(eta, p.p // f2, q) != 1):
+            break
+    v = np.empty((p.phi, p.phi), dtype=np.uint64)
+    for w, e in enumerate(p.w_exponents):
+        root, acc = pow(eta, int(e), q), 1
+        for r in range(p.phi):
+            v[w, r] = acc
+            acc = acc * root % q
+    return v
+
+
+def golden_check(ctx) -> dict:
+    """The independent C++ oracle (native/golden) against K1 on the card at
+    every ref limb: the X-NTT polymul on a few lanes (forward, pointwise
+    product, inverse) against the schoolbook product mod X^n - wrap, and
+    the W-CRT forward on a few columns against the modular matvec on a
+    Vandermonde built from the moduli alone (w_vandermonde)."""
+    from matrix_fhe_tpu_torch.native import golden
+    from matrix_fhe_tpu_torch.ops import modmath as mm
+
+    if not golden.available():
+        raise AssertionError("the golden oracle did not build (g++)")
+    p = ctx.params
+    L, W, n = len(p.moduli), p.phi, p.n
+    lanes, cols = 4, 4
+    rng = np.random.default_rng(17)
+    a, b = (np.stack([rng.integers(0, q, (lanes, n), dtype=np.uint64)
+                      for q in p.moduli]) for _ in range(2))
+    x = np.stack([rng.integers(0, q, (W, cols), dtype=np.uint64)
+                  for q in p.moduli])
+
+    def dev(v):
+        return torch.from_numpy(v.view(np.int64)).cuda()
+
+    xn = ctx.xntt
+    q = mm.moduli_col(p.moduli, 2, "cuda")
+    prod = xn.inverse(mm.mul_mod(xn.forward(dev(a)), xn.forward(dev(b)), q))
+    prod = prod.cpu().numpy().view(np.uint64)
+    wfwd = ctx.wt.forward(dev(x)).cpu().numpy().view(np.uint64)
+    bad = []
+    for l, ql in enumerate(p.moduli):
+        for r in range(lanes):
+            want = golden.polymul_wrap(int(ql), xn.wrap_constant(l), a[l, r],
+                                       b[l, r])
+            if not (prod[l, r] == want).all():
+                bad.append(("polymul", l, r))
+        v = w_vandermonde(p, int(ql))
+        for c in range(cols):
+            if not (wfwd[l, :, c] == golden.mod_matvec(int(ql), v,
+                                                      x[l, :, c])).all():
+                bad.append(("matvec", l, c))
+    log(f"[golden] K1 on the card against the C++ oracle at all {L} ref "
+        f"limbs: X-NTT polymul on {lanes} lanes (wrap q - 1) and W-CRT "
+        f"forward on {cols} columns, the matvec on a Vandermonde built here "
+        f"from the moduli (not the port's table), bit for bit: {not bad}")
+    if bad:
+        raise AssertionError(f"K1 differs from the golden oracle: {bad[:4]}")
+    return {"golden_limbs": L, "golden_lanes": lanes, "golden_columns": cols}
+
+
+def surface_check(ctx) -> dict:
+    """The encoder / W-CRT surface on the card: Encoder.encode and
+    decode_lane_from_rns_eval on a few ref lanes (K4, error < 1e-4),
+    WTransform.inverse_scaled (K1 on the scaled tables) against inverse()
+    times M_l^-1 mod q_l, and the centered oracle at tiny1, whose
+    forward_centered -> inverse_centered roundtrip is exact, bit for bit
+    with the CPU."""
+    from matrix_fhe_tpu_torch.config import get_params
+    from matrix_fhe_tpu_torch.ops import modmath as mm
+    from matrix_fhe_tpu_torch.ops.wcrt import WTransform
+
+    p = ctx.params
+    rng = np.random.default_rng(19)
+    lanes = 4
+    mr, mi = (torch.from_numpy(rng.uniform(-4, 4, (lanes, p.n, p.n))).cuda()
+              for _ in range(2))
+    rr, ri = ctx.encoder.encode(mr, mi)
+    dr, di = ctx.encoder.decode_lane_from_rns_eval(rr, ri)
+    lane_err = float(torch.hypot(dr - mr, di - mi).max())
+    x = random_residues(p.moduli, (p.phi, 4), torch.Generator(
+        device="cuda").manual_seed(19))
+    crt_inv = mm.moduli_col([int(v) for v in ctx.tables.crt_inv], 2, "cuda")
+    scaled_ok = torch.equal(ctx.wt.inverse_scaled(x),
+                            mm.mul_mod(ctx.wt.inverse(x), crt_inv,
+                                       mm.moduli_col(p.moduli, 2, "cuda")))
+    p1 = get_params("tiny1")
+    coeff = torch.from_numpy(((np.arange(p1.phi)[:, None, None]
+                               + np.arange(p1.n)[None, None, :]
+                               + np.arange(p1.n)[None, :, None]) % 17 - 8))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        wt1 = WTransform(p1, device=dev)
+        ev = wt1.forward_centered(coeff.to(dev))
+        outs.append((ev.cpu(), wt1.inverse_centered(ev).cpu()))
+    centered_ok = (torch.equal(outs[0][1], coeff)
+                   and all(torch.equal(a, b) for a, b in zip(*outs)))
+    log(f"[surface] ref lane encode -> decode on {lanes} lanes (K4): max err "
+        f"{lane_err:.3e}; inverse_scaled (K1 on K3's Stage) == inverse x "
+        f"M_l^-1: "
+        f"{scaled_ok}; tiny1 centered roundtrip exact, card == CPU: "
+        f"{centered_ok}")
+    if not (lane_err < TOL and scaled_ok and centered_ok):
+        raise AssertionError("the encoder / W-CRT surface failed on the card")
+    return {"ref_lane_encode_err": lane_err}
+
+
+def profiler_check(ctx, re_t, im_t, sk) -> dict:
+    """One ref roundtrip under utils.profiler.trace with an
+    annotate("roundtrip") span: the Chrome trace must hold the span and a
+    CUDA kernel event of K2 (ntt_mul_ntt_kernel)."""
+    import tempfile
+
+    from matrix_fhe_tpu_torch.utils import profiler
+
+    with tempfile.TemporaryDirectory() as d:
+        with profiler.trace(d):
+            with profiler.annotate("roundtrip"):
+                ctx.roundtrip(re_t, im_t, sk)
+        (name,) = os.listdir(d)
+        size = os.path.getsize(os.path.join(d, name))
+        with open(os.path.join(d, name)) as f:
+            events = json.load(f)["traceEvents"]
+    span = any(e.get("name") == "roundtrip" for e in events)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k2 = [e for e in kernels if "ntt_mul_ntt_kernel" in e.get("name", "")]
+    log(f"[profiler] ref roundtrip trace: {size} B, {len(events)} events, "
+        f"span 'roundtrip': {span}, {len(kernels)} CUDA kernel events, "
+        f"{len(k2)} of K2 (ntt_mul_ntt_kernel)")
+    if not (span and k2):
+        raise AssertionError("the profiler trace lacks the roundtrip span or "
+                             "a K2 kernel event")
+    return {"ref_trace_bytes": size, "ref_trace_kernel_events": len(kernels)}
+
+
+def gl2_conj_path(ctx, hm, rc, sk, X, gen):
+    """Gl2Conj at ref on path 4's gl2 context, RelinContext (the preset's P,
+    dnum 4) and secret key: the conjugation key, then encrypt X,
+    conjugate, decrypt and decode, counted; error against conj(X) below
+    1e-4; keygen and apply times; then a tiny conjugation on the card with
+    a key made on the CPU against the CPU, and K10a's twiddle form against
+    its plain version at the digit steps' shape (outside the counted run).
+    Returns (row, summary, launches of the counted run, launches of one
+    apply)."""
+    from matrix_fhe_tpu_torch.config import get_params
+    from matrix_fhe_tpu_torch.models.he2 import Ciphertext2, Gl2Context
+    from matrix_fhe_tpu_torch.models.he_matmul2 import Gl2Conj, HEMatmul2
+    from matrix_fhe_tpu_torch.models.keyswitch import RelinContext, RelinKey
+    from matrix_fhe_tpu_torch.ops import _backend as be
+
+    xr, xi = (torch.from_numpy(v).cuda() for v in (X.real, X.imag))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    be.reset_launches()
+    t0 = time.perf_counter()
+    cj = Gl2Conj(hm, rc, sk, gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ct = ctx.encrypt(ctx.encode(xr, xi), sk, gen)
+    torch.cuda.synchronize()
+    launches_before = dict(be.LAUNCHES)
+    t1a = time.perf_counter()
+    ct_c = cj.apply(ct)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    apply_launches = {k: v - launches_before.get(k, 0)
+                      for k, v in be.LAUNCHES.items()
+                      if v != launches_before.get(k, 0)}
+    dr, di = ctx.decrypt_and_decode(ct_c, sk)
+    torch.cuda.synchronize()
+    launches = dict(be.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    key_bytes = nbytes(list(cj._ksk.b) + list(cj._ksk.a))
+    got = dr.cpu().numpy() + 1j * di.cpu().numpy()
+    err = float(np.abs(got - np.conj(X)).max())
+    log(f"[conj] Gl2Conj at ref: key {key_bytes} B (dnum {rc.dnum}, "
+        f"[{len(rc.qp_moduli)}, {ctx.params.phi}, {ctx.params.n}, "
+        f"{2 * ctx.params.n}] a digit and component), first keygen "
+        f"{1e3 * (t1 - t0):.1f} ms, first apply {1e3 * (t2 - t1a):.1f} ms; "
+        f"max |dec - conj(X)| = {err:.3e} (limit {TOL}); "
+        f"max_memory_allocated {peak} B, {peak - held} B above what was held "
+        f"before; launches over keygen, encrypt, apply, decrypt+decode "
+        f"{launches}; in one apply {apply_launches}")
+    if got.shape != X.shape or not np.isfinite(got).all() or not err < TOL:
+        raise AssertionError(f"ref gl2 conjugation err {err} >= {TOL}")
+
+    keygen_ms = statistics.median(
+        cuda_ms(lambda: Gl2Conj(hm, rc, sk, gen), warmup=False)
+        for _ in range(3))
+    apply_ms = statistics.median(cuda_ms(lambda: cj.apply(ct), warmup=False)
+                                 for _ in range(3))
+    log(f"[conj] keygen {keygen_ms:.3f} ms, apply {apply_ms:.3f} ms (median "
+        f"of 3 after the first call, CUDA events); K1 {apply_launches.get('stage', 0)}, "
+        f"stage_tw {apply_launches.get('stage_tw', 0)}, K2 "
+        f"{apply_launches.get('ntt_mul_ntt', 0)} launches in one apply")
+    del cj, ct, ct_c
+    torch.cuda.empty_cache()
+
+    # K10a's twiddle form at the digit steps' shape: the gl2 QP X-NTT
+    # (2n = 128 points) fused with a key product, [Lqp, W n, 2n]
+    qp, m = rc.qp_moduli, 2 * ctx.params.n
+    fwd_x = rc.xntt_qp._fwd
+    d = random_residues(qp, (ctx.params.phi * ctx.params.n, m), gen)
+    tw = random_residues(qp, (ctx.params.phi * ctx.params.n, m), gen)
+    row = check_kernel(
+        f"stage_tw (K10a, gl2 QP X-NTT x twiddle, {m} points, {len(qp)} "
+        f"limbs)", "stage_tw", "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:460",
+        lambda: fwd_x.kernel(d, tw), lambda: fwd_x.plain(d, tw),
+        [fwd_x.table, d, tw], stage_work(fwd_x, d))
+    row["launches"] = launches.get(row.pop("key"), 0)
+    row["paths"] = ("4_gl2_conj",)
+    del d, tw
+    torch.cuda.empty_cache()
+
+    # a tiny conjugation: key and ciphertext made on the CPU, applied on
+    # the card and on the CPU's plain path, the same bits
+    pt = get_params("tiny")
+    cpu = Gl2Context(pt, device="cpu")
+    hm_c = HEMatmul2(cpu)
+    g = torch.Generator().manual_seed(5)
+    sk_c = cpu.generate_secret_key(g)
+    r2 = np.random.default_rng(5)
+    ct_t = cpu.encrypt(cpu.encode(
+        torch.from_numpy(r2.uniform(-1, 1, (pt.phi, pt.n, pt.n))),
+        torch.from_numpy(r2.uniform(-1, 1, (pt.phi, pt.n, pt.n)))), sk_c, g)
+    cj_c = Gl2Conj(hm_c, RelinContext(cpu), sk_c, g)
+    want = cj_c.apply(ct_t)
+    gpu = Gl2Context(pt, device="cuda")
+    cj_g = Gl2Conj.from_key(HEMatmul2(gpu), RelinContext(gpu), RelinKey(
+        *(tuple(k.cuda() for k in part) for part in cj_c._ksk)))
+    got_t = cj_g.apply(Ciphertext2(*(t.cuda() for t in ct_t)))
+    if not (torch.equal(got_t.b.cpu(), want.b)
+            and torch.equal(got_t.a.cpu(), want.a)):
+        raise AssertionError("tiny gl2 conjugation on the card differs from "
+                             "the CPU path")
+    log("[check] tiny gl2 conjugation: card == CPU plain path, bit for bit")
+    summary = {"ref_conj_err": err, "ref_conj_keygen_ms": keygen_ms,
+               "ref_conj_apply_ms": apply_ms, "ref_conj_key_bytes": key_bytes,
+               "ref_conj_first_keygen_s": t1 - t0,
+               "ref_conj_first_apply_s": t2 - t1a,
+               "ref_conj_memory_above_held": peak - held,
+               "ref_conj_apply_launches": apply_launches}
+    return row, summary, launches, apply_launches
+
+
 def finalize_rows(rows) -> None:
     """bound_ms (the larger of bytes over the memory rate and each type of
     operations over its peak; "imad" counts IMADs) and bound_by, for every
@@ -1247,13 +1567,34 @@ def main() -> int:
     if not (torch.equal(g[0].cpu(), c[0]) and torch.equal(g[1].cpu(), c[1])):
         raise AssertionError("small roundtrip on the card differs from the CPU path")
     log("[check] small roundtrip: card == CPU plain path, bit for bit")
-
     walls["1_roundtrip"] = time.perf_counter() - t_path
+
+    # -- path 1: the phase table, serialization, the oracle, a trace ----------
+    from matrix_fhe_tpu_torch.scripts import rt_phases
+    t0 = time.perf_counter()
+    rtp = rt_phases.run("ref", 5)
+    log(f"[rt-phases] sum of the phases {rtp['phase_sum_ms']:.3f} ms, fused "
+        f"roundtrip {rtp['fused_ms']:.3f} ms, error {rtp['err']:.3e}")
+    if not (np.isfinite(rtp["err"]) and rtp["err"] < TOL):
+        raise AssertionError(f"rt_phases roundtrip err {rtp['err']} >= {TOL}")
+    walls["1_rt_phases"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    extra = serialization_check(ctx, ct_re, ct_im, sk)
+    walls["1_serialization"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    extra.update(golden_check(ctx))
+    extra.update(surface_check(ctx))
+    walls["1_golden"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    extra.update(profiler_check(ctx, re_t, im_t, sk))
+    walls["1_profiler"] = time.perf_counter() - t0
+    del ct_re, ct_im
 
     # -- path 2: the bench NTT (K5) ----------------------------------------
     summary = {"ref_roundtrip_ms": rt_ms, "ref_roundtrip_err": err_rt,
                "ref_step_api_err": err_steps, "max_memory_allocated": peak,
-               "k5_imads_per_product": k5_imads}
+               "k5_imads_per_product": k5_imads, "rt_phases_ref": rtp}
+    summary.update(extra)
     t_path = time.perf_counter()
     for bits in (35, 28):
         ntt_rows, ntt_summary = ntt_path(bits, gen, k5_imads)
@@ -1272,11 +1613,12 @@ def main() -> int:
 
     # -- path 4: the gl2 ciphertext GEMM at ref (K7, K2 at 2n = 128) --------
     t_path = time.perf_counter()
-    gl2_rows, gl2_summary, gl2_launches = gl2_path()
+    gl2_rows, gl2_summary, gl2_launches, conj_launches = gl2_path()
     rows += gl2_rows
     summary.update(gl2_summary)
     torch.cuda.empty_cache()          # path 4's 15 GB of switch keys go
     walls["4_gl2"] = time.perf_counter() - t_path
+    walls["4_gl2_conj"] = gl2_summary["ref_conj_wall_s"]
 
     # -- path 5: key switching and the leveled chain at ref (K10a) ----------
     t_path = time.perf_counter()
@@ -1297,15 +1639,22 @@ def main() -> int:
     for row in rows:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its path")
-    # K2 runs in every encrypt and decrypt: its launches on each path that
-    # runs it (paths 1, 3 and 5 at n = 64, path 4 at the gl2 ring's 128)
-    k2_by_path = {path: counts.get("ntt_mul_ntt", 0) for path, counts in (
-        ("1_roundtrip", launches), ("3_matmul", mm_launches),
-        ("4_gl2", gl2_launches), ("5_keyswitch", ks_launches))}
-    log(f"[launches] ntt_mul_ntt (K2) by path: {k2_by_path}")
-    for row in rows:
-        if row["name"].startswith("ntt_mul_ntt"):
-            row["launches_by_path"] = k2_by_path
+    # K2 runs in every encrypt and decrypt, K1 and K10a's twiddle form on
+    # several paths: their launches on each path (K2: paths 1, 3 and 5 at
+    # n = 64, path 4 and its conjugation at the gl2 ring's 128); a row that
+    # names its paths (K10a-tw: the key switch's 64 points on path 5, the
+    # conjugation's 128) carries only theirs
+    by_path = (("1_roundtrip", launches), ("3_matmul", mm_launches),
+               ("4_gl2", gl2_launches), ("4_gl2_conj", conj_launches),
+               ("5_keyswitch", ks_launches))
+    for key, prefix in (("ntt_mul_ntt", "ntt_mul_ntt"), ("stage", "stage (K1"),
+                        ("stage_tw", "stage_tw (K10a")):
+        counts = {path: c.get(key, 0) for path, c in by_path}
+        log(f"[launches] {key} by path: {counts}")
+        for row in rows:
+            if row["name"].startswith(prefix):
+                row["launches_by_path"] = {
+                    path: counts[path] for path in row.pop("paths", counts)}
     log(f"[bound] IMAD peak {IMAD_PER_S:.4e} /s (64 a clock on each of 132 "
         f"SMs at 1.98 GHz); K11 addmul measured "
         f"{probe_summary['k11_addmul_steps_per_s']:.4e} steps/s")

@@ -19,11 +19,16 @@ bit by tests/test_torch_*.py.
   * Beside the roundtrip: the homomorphic matrix product C = Y^H X
     (HEMatmul, the trace GEMM), its ciphertext-in / ciphertext-out form
     on the gl2 double ring (Gl2Context, HEMatmul2, Gl2GemmRelin: the 2x2
-    GEMM tensor and its relinearization) and the large-N four-step NTT
+    GEMM tensor and its relinearization, and Gl2Conj, the homomorphic
+    complex conjugation) and the large-N four-step NTT
     (ops/ntt_large.FourStepNTT).
   * Key switching: relinearized multiplication, rescale and Galois
     rotations (models/keyswitch.py), and the leveled chain (LeveledChain)
     that composes them at depth.
+  * utils/: checkpoints in the JAX package's .npz format
+    (serialization), timers (timer), traces (profiler) and logging;
+    native/golden, an independent C++ oracle; scripts/rt_phases, the
+    roundtrip's phase table on the card.
 
 The package imports torch, numpy and the standard library, never jax.
 """
@@ -40,6 +45,7 @@ _LAZY = {
     "HEMatmul": ".models.he_matmul",
     "Gl2Context": ".models.he2",
     "HEMatmul2": ".models.he_matmul2",
+    "Gl2Conj": ".models.he_matmul2",
     "Gl2GemmRelin": ".models.he_matmul2",
     "RelinContext": ".models.keyswitch",
     "LeveledChain": ".models.leveled",

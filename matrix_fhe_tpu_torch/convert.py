@@ -2,11 +2,12 @@
 
 Turns the uint64 arrays of matrix_fhe_tpu objects (secret keys,
 ciphertexts, homomorphic-GEMM tensors, relinearization and Galois keys,
-the switch keys of both rings, a leveled chain's keys, tables) into the
-port's int64 tensors on a given device, so that both packages can compute
-on the same keys and ciphertexts.  Objects are read through their attributes and
-np.asarray, so this module does not import jax.  Residues are canonical
-(< 2^56), so the uint64 -> int64 reinterpretation keeps every value.
+the switch keys of both rings and of gl2 conjugation, a leveled chain's
+keys, tables) into the port's int64 tensors on a given device, so that
+both packages can compute on the same keys and ciphertexts.  Objects are
+read through their attributes and np.asarray, so this module does not
+import jax.  Residues are canonical (< 2^56), so the uint64 -> int64
+reinterpretation keeps every value.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from .models.he import Ciphertext, SecretKey
 from .models.he2 import Ciphertext2, SecretKey2
 from .models.he_matmul import MatmulTensor
-from .models.he_matmul2 import GemmRelinKey, GemmTensor2
+from .models.he_matmul2 import GemmRelinKey, GemmTensor2, Gl2Conj, HEMatmul2
 from .models.keyswitch import (FullGaloisKeys, GaloisKeys, RelinContext,
                                RelinKey, XGaloisKeys)
 
@@ -79,6 +80,12 @@ def relin_key(rlk, device="cpu") -> RelinKey:
     digit [Lqp, W, y, x] in the same storage form x * 2^64 mod q."""
     return RelinKey(b=tuple(residues(x, device) for x in rlk.b),
                     a=tuple(residues(x, device) for x in rlk.a))
+
+
+def gl2_conj(cj, hm: HEMatmul2, rc: RelinContext) -> Gl2Conj:
+    """matrix_fhe_tpu Gl2Conj -> port Gl2Conj over `hm` and `rc`, with the
+    JAX switch key (per digit [Lqp, W, n, 2n])."""
+    return Gl2Conj.from_key(hm, rc, relin_key(cj._ksk, rc.ctx.device))
 
 
 def galois_keys(gk, rc: RelinContext) -> GaloisKeys:

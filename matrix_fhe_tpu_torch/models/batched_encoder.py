@@ -75,6 +75,12 @@ class BatchedEncoder:
         wi = tuple(w.reshape(fr.shape) for w in wi)
         return self.encoder.dft2_words_in(wr, wi, e)
 
+    def unpack_eval(self, ev_re: torch.Tensor, ev_im: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Identity passthrough (unpack_eval_p17 degenerated to a copy,
+        batched_encoder.cu:230-243)."""
+        return ev_re, ev_im
+
     # the JAX package's names for its fast route
     encode_pair = encode_to_wntt_eval
     decode_pair = decode_from_wntt_eval

@@ -11,7 +11,9 @@ products uses the exact big-int dequantize and `dft2_exact`, the sandwich
 with an f64 reconstruction after each K4 half (the JAX route with the
 fixed-point transforms on); the gl2 encode uses its inverse twin
 `idft2_exact`.  The f64 `idft2` / `dft2` are the plain complex128
-sandwiches, kept for tests.
+sandwiches, kept for tests.  The reference's per-lane `encode` and
+`decode_lane_from_rns_eval` run the fixed-point sandwiches (K4) with the
+llround quantize and the exact dequantize.
 """
 
 from __future__ import annotations
@@ -176,6 +178,34 @@ class Encoder:
             r = v % q
             outs.append(torch.where((sg == 1) & (r != 0), q - r, r))
         return outs[0], outs[1]
+
+    # -- the reference's per-lane encode and decode ------------------------
+
+    def encode(self, m_re: torch.Tensor, m_im: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full lane encode: complex matrices [..., n, n] -> RNS residues
+        [L, ..., n, n] in the XY-eval basis (Encoder::encode,
+        encoder.cu:446-458): the sandwich V^-1 M V^-T as exact fixed-point
+        matmuls (K4, idft2_exact), then llround(c Delta) mod q."""
+        cr, ci = self._lanes(self.idft2_exact, m_re, m_im)
+        return self.quantize(cr, ci)
+
+    def decode_lane_from_rns_eval(self, rns_re: torch.Tensor,
+                                  rns_im: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """encoder.cu:470-490: exact dequantize, then V E V^T as exact
+        fixed-point matmuls (K4, dft2_exact); [L, ..., n, n] residues ->
+        f64 pair [..., n, n]."""
+        er, ei = self.dequantize_exact(rns_re, rns_im)
+        return self._lanes(self.dft2_exact, er, ei)
+
+    @staticmethod
+    def _lanes(sandwich, x_re, x_im):
+        """A [W, n, n] sandwich on [..., n, n]: leading dims as the lanes."""
+        shape = x_re.shape
+        n = shape[-1]
+        yr, yi = sandwich(x_re.reshape(-1, n, n), x_im.reshape(-1, n, n))
+        return yr.reshape(shape), yi.reshape(shape)
 
     # -- exact dequantize ----------------------------------------------------
 

@@ -185,10 +185,16 @@ class HEContext:
         _roundtrip_pair_fn."""
         pr, pi = self.batched_encoder.encode_to_wntt_eval(m_re, m_im)
         t = self.xntt.mul_s(self._parity_a_eval, sk.s_mont)
+        return self.batched_encoder.decode_from_wntt_eval(
+            *self._roundtrip_combine(pr, pi, t))
+
+    def _roundtrip_combine(self, pr: torch.Tensor, pi: torch.Tensor,
+                           t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The roundtrip's elementwise middle: b = m - t + e (encrypt on the
+        parity streams) and ev = b + t (decrypt), given t = a*s."""
         e_eval = None if self.zero_noise else self._parity_e_eval
-        evs = [mm.add_mod(self._combine(m, t, e_eval), t, self._q4)
-               for m in (pr, pi)]
-        return self.batched_encoder.decode_from_wntt_eval(*evs)
+        return tuple(mm.add_mod(self._combine(m, t, e_eval), t, self._q4)
+                     for m in (pr, pi))
 
 
 @functools.lru_cache(maxsize=None)

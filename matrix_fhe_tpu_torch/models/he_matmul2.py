@@ -1,6 +1,6 @@
 """Ciphertext-in / ciphertext-out homomorphic GEMM on the gl2 double ring.
 
-Counterpart of matrix_fhe_tpu/models/he_matmul2.py (HEMatmul2,
+Counterpart of matrix_fhe_tpu/models/he_matmul2.py (HEMatmul2, Gl2Conj,
 Gl2GemmRelin), which derives the scheme:
 
   1. sigma, full complex conjugation, is the ring automorphism
@@ -43,7 +43,7 @@ from ..tables import build_tables
 from . import rng as refrng
 from .he2 import Ciphertext2, Gl2Context, SecretKey2
 from .he_matmul import conj_flip_perm
-from .keyswitch import RelinContext
+from .keyswitch import RelinContext, RelinKey
 
 I64 = torch.int64
 
@@ -196,6 +196,61 @@ class HEMatmul2:
         q = self.ctx._q4
         lo, hi = t[:, :, :self.n], t[:, :, self.n:]
         return mm.add_mod(lo, _shift_xn(hi, q), q)
+
+
+class Gl2Conj:
+    """Homomorphic complex conjugation of every packed value.
+
+    The joint automorphism sigma = (W -> W^-1, Y -> Y^-1, X -> X^-1) of
+    the packing ring applied to both components, then ONE key switch from
+    sigma(s) back to s.  sigma is not a composition of per-axis maps:
+    X -> X^-1 fixing Y breaks Y^n = X^n (X-only Galois indices are
+    k = 1 mod 4, XGaloisKeys), and Y -> Y^-1 fixing X likewise; only the
+    joint inversion is an automorphism.  The switch key lives over the
+    RelinContext's QP basis: one (b, a) pair of [Lqp, W, n, 2n] a digit.
+    The key is drawn from a torch.Generator, so it differs from a JAX key;
+    `from_key` takes a key made elsewhere (convert.gl2_conj)."""
+
+    def __init__(self, hm: HEMatmul2, rc: RelinContext, sk: SecretKey2,
+                 generator: torch.Generator):
+        s_res = Gl2Context._ternary_residues(sk.s_sign, hm.ctx.params.moduli)
+        self._init(hm, rc, rc.gen_switch_key(
+            self._sigma_target(hm, rc, s_res), s_res, generator))
+
+    @classmethod
+    def from_key(cls, hm: HEMatmul2, rc: RelinContext,
+                 ksk: RelinKey) -> "Gl2Conj":
+        """Conjugation with a switch key made elsewhere (no keygen)."""
+        self = cls.__new__(cls)
+        self._init(hm, rc, ksk)
+        return self
+
+    def _init(self, hm, rc, ksk) -> None:
+        self.hm = hm
+        self.rc = rc
+        self._ksk = ksk
+
+    @staticmethod
+    def sigma_s_hat(hm: HEMatmul2, rc: RelinContext, sk: SecretKey2
+                    ) -> torch.Tensor:
+        """The key's target sigma(s) in (W-eval, X-NTT) over QP,
+        [Lqp, W, 2n]: the lane flip and the NTT slot reversal (slot k
+        evaluates at psi^(2k+1) of the 2n-point gl2 transform; negating the
+        exponent maps k -> 2n-1-k)."""
+        return Gl2Conj._sigma_target(hm, rc, Gl2Context._ternary_residues(
+            sk.s_sign, hm.ctx.params.moduli))
+
+    @staticmethod
+    def _sigma_target(hm: HEMatmul2, rc: RelinContext, s_res: torch.Tensor
+                      ) -> torch.Tensor:
+        return rc._lift_ternary(s_res).index_select(1, hm._flip).flip(-1)
+
+    def apply(self, ct: Ciphertext2) -> Ciphertext2:
+        """sigma(ct) re-keyed to s: a ciphertext of conj(X) under s."""
+        tb = self.hm._sigma(ct.b)
+        ta = self.hm._sigma(ct.a)
+        kb, ka = self.rc.key_switch_d2(ta, self._ksk)
+        return Ciphertext2(b=mm.add_mod(tb, kb, self.rc._q), a=ka)
 
 
 class Gl2GemmRelin:
@@ -373,6 +428,10 @@ class Gl2GemmRelin:
         r_inv = mm.moduli_col(self._r_inv[lo:hi], 3, q.device)
         return (wt.inverse(self._intt2d(mm.mul_mod(u0, r_inv, q), xntt)),
                 wt.inverse(self._intt2d(mm.mul_mod(u1, r_inv, q), xntt)))
+
+    # the JAX package's limb-chunked relinearization gives its fused
+    # relinearize_fn's bits: the port's one route (chunked) serves under both
+    relinearize_streamed = relinearize
 
     # -- the headline op -----------------------------------------------------
 

@@ -333,6 +333,8 @@ class RelinContext:
         del d2wc
         return self._mr_finish(d0c, d1c, ksb, ksa)
 
+    # the JAX package's digit-streamed multiply gives its fused one's bits:
+    # the port's one route serves under both names
     multiply_relinearize_streamed = multiply_relinearize
 
     def multiply_relinearize_pair(self, re1: Ciphertext, im1: Ciphertext,
@@ -515,7 +517,7 @@ def x_automorphism_maps(x_dim: int, k: int):
 class XGaloisKeys:
     """X-axis automorphisms X -> X^k (k odd), re-keyed to s.  On gl2's
     packed frames only k = 1 (mod 4) is a ring automorphism; conjugation
-    there is the joint inversion (he_matmul2.Gl2Conj in the JAX package)."""
+    there is the joint inversion, models/he_matmul2.Gl2Conj."""
 
     def __init__(self, rc: RelinContext, s_coeff: torch.Tensor,
                  indices: Sequence[int], generator: torch.Generator):

@@ -1,1 +1,2 @@
-"""Native (C++) host-side table generator, bound with ctypes."""
+"""Native (C++) host-side code bound with ctypes: the table generator
+(tablegen) and the independent golden-model oracle (golden)."""

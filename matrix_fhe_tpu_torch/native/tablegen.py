@@ -27,28 +27,31 @@ _PU64 = ctypes.POINTER(ctypes.c_uint64)
 _PI64 = ctypes.POINTER(ctypes.c_int64)
 
 
-def _build() -> str:
-    if (os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return LIBRARY
-    os.makedirs(os.path.dirname(LIBRARY), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(LIBRARY))
+def build_library(source: str, library: str) -> str:
+    """g++ `source` into the shared library `library` unless it is newer
+    than its source; the build goes through a temporary file, so a
+    concurrent process never loads half a library."""
+    if (os.path.exists(library)
+            and os.path.getmtime(library) >= os.path.getmtime(source)):
+        return library
+    os.makedirs(os.path.dirname(library), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(library))
     os.close(fd)
     try:
-        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp, SOURCE],
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp, source],
                        check=True, capture_output=True, timeout=120)
-        os.replace(tmp, LIBRARY)
+        os.replace(tmp, library)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return LIBRARY
+    return library
 
 
 @functools.cache
 def _lib():
     """The loaded library, or None when it cannot be built or loaded."""
     try:
-        lib = ctypes.CDLL(_build())
+        lib = ctypes.CDLL(build_library(SOURCE, LIBRARY))
     except (OSError, subprocess.SubprocessError):
         return None
     lib.mf_vandermonde.argtypes = [ctypes.c_uint64, _PU64, ctypes.c_int64,

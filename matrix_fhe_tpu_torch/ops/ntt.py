@@ -8,11 +8,13 @@ ring is the GL ring's integral double form Z[X]/(X^{2n}+1), a 2n-point
 transform with the same kernels.  forward_mul fuses the forward transform
 with a pointwise product in storage form (kernel K10a's twiddle).  The
 TPU's 128-lane block-diagonal packing has no counterpart: it only filled
-the TPU's vector lanes.
+the TPU's vector lanes.  wrap_constant and apply_gl_perm are the
+reference's ring constant and slot permutation, for tests and oracles.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import GLParams
@@ -39,6 +41,9 @@ class XNTT:
             fwd, inv = build_gl2_x_tables(t)
         else:
             raise ValueError(f"unknown ring {ring!r}")
+        self.params = params
+        self.ring = ring
+        self._psi4n = tuple(int(v) for v in t.psi4n)
         self._fwd = Stage(fwd, params.moduli, "right", device)
         self._inv = Stage(inv, params.moduli, "right", device)
         self._mul_s = NttMulNtt(fwd, inv, params.moduli, device)
@@ -72,3 +77,24 @@ class XNTT:
         L, n = a.shape[0], a.shape[-1]
         rows = a.reshape(L, -1, n).contiguous()
         return self._mul_s(rows, s_mont.contiguous()).reshape(a.shape)
+
+    def wrap_constant(self, limb: int) -> int:
+        """The X^n wraparound constant of this ring mod q_limb: q - 1 for
+        negacyclic and for gl2 (X^{2n} = -1, a double-degree negacyclic
+        ring), psi4n^n for GL (test_custom_ntt_roundtrip.cu:260-261)."""
+        q = int(self.params.moduli[limb])
+        if self.ring in (RING_NEGACYCLIC, RING_GL2):
+            return q - 1
+        return pow(self._psi4n[limb], self.params.n, q)
+
+
+def apply_gl_perm(x: torch.Tensor, perm) -> torch.Tensor:
+    """Permute the trailing axis: out[..., perm[j]] = x[..., j].
+
+    Mirrors gl_perm_kernel (ntt_core.cu:258-269); pass tables.gl_perm for
+    the forward 5^j-orbit -> bit-reversed mapping and tables.gl_inv_perm to
+    undo it (apply_gl_perm wrapper, ntt_core.cu:433-441)."""
+    p = np.asarray(perm)
+    gather = np.empty_like(p, dtype=np.int64)
+    gather[p] = np.arange(p.size)          # out[..., i] = x[..., gather[i]]
+    return x.index_select(-1, torch.from_numpy(gather).to(x.device))

@@ -5,19 +5,24 @@ route: the W-CRT forward and inverse are kernel K1 (side "left"), the
 scaled W-CRT inverse fused with the CRT compose is kernel K3, and the
 512-point complex W-DFT / IDFT run as exact fixed-point matmuls on words
 (kernel K4).  The inverse and the exact big-int composer serve the
-Delta^2-scaled decode of homomorphic products.
+Delta^2-scaled decode of homomorphic products.  The scaled inverse alone
+(inverse_scaled) is K1 on K3's scaled tables, and the reference's centered
+int64 oracle (forward_centered, inverse_centered) runs K1 with the exact
+compose.
 
 Layout is limb-major [L, W, ...] as in the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..config import GLParams
 from ..tables import GLTables, build_tables
-from .crt import CRTComposer
+from .crt import CRTComposer, centered_i64_to_rns
 from .cuda_ntt import InvCompose, Stage
 from .ddfloat import compose_tail_from_partials
 from .fpmatmul import ExactComplexMatmul
@@ -59,6 +64,48 @@ class WTransform:
         """[L, W, ...] eval -> coeff (out[r] = sum_w V^-1[r, w] x[w])."""
         L, W = x.shape[0], x.shape[1]
         return self._inv(x.reshape(L, W, -1).contiguous()).reshape(x.shape)
+
+    def inverse_scaled(self, x: torch.Tensor) -> torch.Tensor:
+        """inverse() with outputs pre-multiplied by M_l^-1 mod q_l: K1 on
+        K3's scaled tables, InvCompose's own Stage, so its launches count
+        under K3's keys (inv_compose_stage, inv_compose_split)."""
+        L, W = x.shape[0], x.shape[1]
+        return self._inv_compose._stage(x.reshape(L, W, -1).contiguous()
+                                        ).reshape(x.shape)
+
+    # -- centered-integer path (test oracles; HE.cu:1029-1114) ----------------
+
+    def forward_centered(self, x_centered: torch.Tensor) -> torch.Tensor:
+        """int64 [W, ...] coeff -> centered int64 eval via all limbs and the
+        exact CRT compose (wntt_forward_centered_kernel, HE.cu:1029-1081),
+        including its int64 saturation (he_big_to_i64_checked,
+        HE.cu:904-915).
+
+        Fidelity note (as in the JAX package): per-limb eta roots are
+        searched independently (HE.cu:119-133), so the composed evaluation
+        is a ~Q-sized integer whenever there is more than one limb; the
+        reference kernel then saturates to INT64_MAX / MIN, which breaks
+        the limb-0 congruence inverse_centered relies on.  The centered
+        roundtrip is exactly invertible only when Q < 2^63 (the one-limb
+        "tiny1" preset); the saturation is reproduced either way."""
+        rns = centered_i64_to_rns(x_centered, self.params.moduli)
+        return self.composer.compose_centered_i64(self.forward(rns))
+
+    @functools.cached_property
+    def _inv0(self) -> Stage:
+        """The W-CRT inverse of limb 0 alone (K1)."""
+        t = self._inv.table[:1]
+        return Stage(t.cpu().numpy().view(np.uint64), self.params.moduli[:1],
+                     "left", t.device)
+
+    def inverse_centered(self, x_centered: torch.Tensor) -> torch.Tensor:
+        """int64 [W, ...] eval -> centered int64 coeff using limb 0 only
+        (wntt_inverse_centered_kernel, HE.cu:1083-1114)."""
+        q0 = int(self.params.moduli[0])
+        m = torch.remainder(x_centered, q0)
+        ev = self._inv0(m.reshape(1, x_centered.shape[0], -1).contiguous()
+                        ).reshape(x_centered.shape)
+        return torch.where(ev > q0 >> 1, ev - q0, ev)
 
     def inverse_scaled_compose(self, x: torch.Tensor,
                                delta: float) -> torch.Tensor:

@@ -161,15 +161,21 @@ def test_package_never_imports_jax():
             "rns_ext, probes\n"
             "from matrix_fhe_tpu_torch.models import trace, he_matmul, he2, "
             "he_matmul2, keyswitch, leveled\n"
-            "from matrix_fhe_tpu_torch.utils import debug\n"
+            "from matrix_fhe_tpu_torch.utils import debug, timer, profiler, "
+            "serialization, logging\n"
+            "from matrix_fhe_tpu_torch.native import golden\n"
             "from matrix_fhe_tpu_torch.scripts import micro_vpu, "
-            "micro_coissue, ks_phases\n"
+            "micro_coissue, ks_phases, rt_phases\n"
             "tablegen.available()\n"
+            "assert golden.available()\n"
             "ctx = m.init_he_backend('tiny', device='cpu')\n"
             "ctx.generate_secret_key()\n"
             "m.HEMatmul(m.init_he_backend('tiny', ring='gl', device='cpu'))\n"
-            "m.Gl2GemmRelin(m.HEMatmul2(m.Gl2Context(m.get_params('tiny'), "
+            "gr = m.Gl2GemmRelin(m.HEMatmul2(m.Gl2Context(m.get_params('tiny'), "
             "device='cpu')))\n"
+            "import torch\n"
+            "g2 = gr.ctx.generate_secret_key(torch.Generator().manual_seed(1))\n"
+            "m.Gl2Conj(gr.hm, gr.rc, g2, torch.Generator().manual_seed(2))\n"
             "chain = m.LeveledChain(m.get_params('tiny'), device='cpu')\n"
             "chain.rc(1)\n"
             "bad = [k for k in sys.modules "
