@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from matrix_fhe_tpu_torch/csrc/ (one nvcc per
-source, in parallel) and drives four paths of the port through their
+source, in parallel) and drives seven paths of the port through their
 public entry points, each with the launch counts set to 0 just before it
 and read just after:
 
@@ -49,7 +49,29 @@ and read just after:
   6. the probes: python3 -m matrix_fhe_tpu_torch.scripts.micro_vpu (K11)
      and micro_coissue (K12) at their default shapes, then every variant
      and mode against its plain version at those shapes and on a reduced
-     grid.
+     grid;
+  7. parallel/ on worlds of ranks sharing this one card
+     (parallel.launch.run_world, spawned, with the kernels already built
+     here): four gloo ranks run the coefficient-sharded NTT at N = 2^17,
+     L = 4, B = 2 over all four (equal to the single-device
+     forward_plain, exact inverse), ShardedPipeline at ref on dp 2 x tp 2
+     over 4 messages of default_rng(7).uniform(-4, 4) (equal to
+     HEContext.roundtrip_batch bit for bit, error < 1e-4) and the
+     W-sharded multiply_relinearize at ref over tp 4 (keys made on every
+     rank from one seed, their checksums all_gathered; equal to the
+     unsharded product bit for bit, noise < 2^25); the same programs in a
+     one-rank nccl world; then scripts.bench_dist's card mode (the
+     limb-sharded K5 NTT at N = 2^16, the dist NTT, the cost model on
+     path 2's NTT/s).  The path's launches are those of the sharded
+     calls alone, summed over the ranks (each program counts its own
+     window: keygen, encryption and the single-rank references stay
+     out); each program must launch its kernels (the dist NTT K1 and
+     K10a's twiddle form, the pipeline K1-K4, the key switch K1 and the
+     twiddle form, the limb-sharded NTT K5).  Rank 0 holds K1 and the
+     twiddle form to their plain versions at the dist NTT's stage shapes,
+     K1 on the key switch's lane-sliced QP W-CRT table and K2 at the
+     pipeline's row block.  Times and per-rank peak memory are logged as
+     four ranks sharing one card: a validation, not a scaling figure.
 
 Every kernel is held bit for bit against its plain PyTorch version at the
 shapes its path gives it, and both are timed, with the least time the card
@@ -68,7 +90,7 @@ K1's inverse), the yardstick of its fusion.  The rows of K2, K1 and K10a's
 twiddle form carry their launches on every path (`launches_by_path`, the
 conjugation of path 4 as "4_gl2_conj"); K10a's twiddle-form rows carry only
 the path that runs their shape (path 5 at 64 points, the conjugation at
-128).  The SASS check fails if
+128, path 7's dist NTT at 256).  The SASS check fails if
 a kernel whose products run on the tensor cores (K1, K2, K4, K6, K7, and
 K12's mxu, both and dep instantiations) has no wgmma instruction.
 Fails (nonzero exit, no result line) without a CUDA device, on a build or
@@ -805,6 +827,7 @@ def leveled_path():
     from matrix_fhe_tpu_torch.ops import _backend as be
     from matrix_fhe_tpu_torch.ops import modmath as mm
     from matrix_fhe_tpu_torch.scripts import ks_phases
+    from matrix_fhe_tpu_torch.scripts.bench_dist import relin_noise as noise
     from matrix_fhe_tpu_torch.utils.debug import composed_magnitude
 
     p = get_params("ref")
@@ -847,19 +870,14 @@ def leveled_path():
         return cx.xntt.inverse(cx.xntt.forward_mul(
             b, cx.xntt.forward_mul(a, cx._r2_tw)))
 
-    diff = mm.sub_mod(ctx.decrypt_to_eval(ct, sk),
-                      ring_mul(ctx, ctx.decrypt_to_eval(ct1, sk),
-                               ctx.decrypt_to_eval(ct2, sk)), ctx._q4)
-    dw0 = ctx.wt.inverse(diff)[0]
-    q0 = int(p.moduli[0])
-    relin_noise = int(torch.where(dw0 > q0 // 2, dw0 - q0, dw0).abs().max())
+    relin_noise = noise(ctx, ct, ct1, ct2, sk)
     log(f"[ks] relinearized multiply at ref: first call "
         f"{steps['multiply_relinearize_first']:.1f} ms, median of 3 "
         f"{mr_ms:.3f} ms; |relinearization noise| max {relin_noise} "
         f"(limit 2^25 = {1 << 25}; Delta = 2^35)")
     if not relin_noise < 1 << 25 or ct.b.shape != ct1.b.shape:
         raise AssertionError(f"relinearization noise {relin_noise} >= 2^25")
-    del ct, ct1, ct2, m1, m2, diff, dw0
+    del ct, ct1, ct2, m1, m2
 
     # -- examples/leveled.py: the depth-2 circuit and rotate(2, full) ------
     rng = np.random.default_rng(3)
@@ -1122,6 +1140,236 @@ def probe_path():
         row["launches"] = launches.get(row.pop("key"), 0)
     summary = {"k11": vpu, "k12": co, "k11_addmul_steps_per_s": steps_per_s}
     return rows, summary
+
+
+# -- path 7: the sharded programs on a world of ranks ---------------------------
+
+PAR_NTT_N, PAR_NTT_L, PAR_NTT_B = 1 << 17, 4, 2   # bench_dist.py:185-213
+PAR_MSGS = 4                    # ShardedPipeline batch, default_rng(7)
+WORLD_S = 600                   # a world's time limit
+# the cost model's link rates, named assumptions (no run measures them):
+# H100 SXM NVLink 4, 900 GB/s both ways (data sheet), and one 400 Gb/s
+# NDR InfiniBand port a host
+NVLINK_GBPS, IB_GBPS = 450.0, 50.0
+
+
+def parallel_rows(device, dp: int, tp: int) -> list:
+    """Every rank builds the meshes (a collective); rank 0 holds the
+    kernels to their plain versions at the shapes its sharded objects
+    give them: K10a's twiddle form and K1 at the four-way dist NTT's
+    stages (N = 2^17 as 256 x 512, B = 2: stage 1 x twiddle on
+    [4, 256, 256] with a [4, 128, 256] twiddle, stage 2 on [4, 128, 512]),
+    K1 on the key switch's lane-sliced QP W-CRT table at its gathered
+    input, and K2 on the pipeline's rows of the parity a."""
+    from matrix_fhe_tpu_torch.config import get_params
+    from matrix_fhe_tpu_torch.models.he import HEContext
+    from matrix_fhe_tpu_torch.models.keyswitch import RelinContext
+    from matrix_fhe_tpu_torch.ops.ntt_large import (FourStepPlan,
+                                                    generate_primes_1mod)
+    from matrix_fhe_tpu_torch.parallel.dist_ntt import DistFourStepNTT
+    from matrix_fhe_tpu_torch.parallel.keyswitch import ShardedWTransform
+    from matrix_fhe_tpu_torch.parallel.mesh import make_mesh
+    from matrix_fhe_tpu_torch.parallel.pipeline import ShardedPipeline
+    world = torch.distributed.get_world_size()
+    coeff = make_mesh({"coeff": world}, "cuda")
+    lanes = make_mesh({"tp": world}, "cuda")
+    msgs = make_mesh({"dp": dp, "tp": tp}, "cuda")
+    if torch.distributed.get_rank() != 0:
+        return []
+    torch.cuda.empty_cache()
+    primes = generate_primes_1mod(PAR_NTT_L, 35, 2 * PAR_NTT_N)
+    plan = FourStepPlan.make(PAR_NTT_N, primes)
+    dn = DistFourStepNTT(plan, coeff, "coeff", device)
+    st1, st2, tw = dn._st["t1f"], dn._st["t2f"], dn._tw_f
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x1 = random_residues(primes, (PAR_NTT_B * plan.n2 // world, plan.n1), gen)
+    x2 = random_residues(primes, (PAR_NTT_B * plan.n1 // world, plan.n2), gen)
+    rows = [check_kernel(
+        f"stage_tw (K10a, dist NTT stage 1 x twiddle, {list(x1.shape)}, "
+        f"twiddle {list(tw.shape)})", "stage_tw",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:460",
+        lambda: st1.kernel(x1, tw), lambda: st1.plain(x1, tw),
+        [st1.table, x1, tw], stage_work(st1, x1))]
+    rows[0]["paths"] = ("7_parallel",)
+    rows.append(check_kernel(
+        f"stage (K1, dist NTT stage 2, {list(x2.shape)})", "stage",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
+        lambda: st2.kernel(x2), lambda: st2.plain(x2), [st2.table, x2],
+        stage_work(st2, x2)))
+    del dn, x1, x2
+
+    p = get_params("ref")
+    W, n = p.phi, p.n
+    rc = RelinContext(HEContext(p, ring="nega", device=device))
+    qp = ShardedWTransform(rc.wt_qp, lanes, "tp")._fwd
+    d_w = random_residues(rc.qp_moduli, (W, n * n), gen)
+    rows.append(check_kernel(
+        f"stage (K1, key switch's QP W-CRT forward on lanes 0-"
+        f"{W // world - 1}, table {list(qp.table.shape)}, "
+        f"{list(d_w.shape)})", "stage",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
+        lambda: qp.kernel(d_w), lambda: qp.plain(d_w), [qp.table, d_w],
+        stage_work(qp, d_w)))
+    del rc, qp, d_w
+    torch.cuda.empty_cache()
+
+    ctx = HEContext(p, device=device)
+    sp = ShardedPipeline(ctx, msgs)
+    k2, s_mont = ctx.xntt._mul_s, ctx.generate_secret_key().s_mont
+    a_rows = sp._a_rows.reshape(len(p.moduli), -1, n)
+    rows.append(check_kernel(
+        f"ntt_mul_ntt (K2, pipeline rows {sp.rows.start}-{sp.rows.stop - 1}"
+        f" of {n}, {list(a_rows.shape)})", "ntt_mul_ntt",
+        "matrix_fhe_tpu_torch/csrc/ntt_mul_ntt.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1851",
+        lambda: k2.kernel(a_rows, s_mont), lambda: k2.plain(a_rows, s_mont),
+        [k2.fwd, k2.inv, a_rows, s_mont], ntt_mul_ntt_work(k2, a_rows)))
+    return rows
+
+
+# the kernels each sharded program must launch (its window's counts)
+PAR_NEEDS = {"ntt": ("stage", "stage_tw"),
+             "pipeline": ("stage", "ntt_mul_ntt", "inv_compose",
+                          "fp_cmatmul"),
+             "keyswitch": ("stage", "stage_tw")}
+
+
+def parallel_rank(device, dp: int, tp: int, rows: bool) -> dict:
+    """One rank of path 7: the dist NTT at N = 2^17 over every rank, the
+    ref ShardedPipeline on dp x tp, the ref W-sharded multiply_relinearize
+    over every rank, each held to its single-rank result on rank 0, each
+    with the launches of its sharded calls alone; then, with `rows`, the
+    kernel rows of parallel_rows (after the launches are taken)."""
+    from matrix_fhe_tpu_torch.scripts import bench_dist as bd
+    world = torch.distributed.get_world_size()
+    out = {}
+    for name, run in (
+            ("ntt", lambda: bd.rank_dist_ntt(device, PAR_NTT_N, 35, PAR_NTT_L,
+                                             PAR_NTT_B, iters=5)),
+            ("pipeline", lambda: bd.rank_pipeline(device, "ref", dp, tp,
+                                                  PAR_MSGS, 7, -4.0, 4.0)),
+            ("keyswitch", lambda: bd.rank_keyswitch(device, "ref", world))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize(device)
+        res["wall_s"] = time.perf_counter() - t0
+        res.pop("out", None)
+        res.pop("spectrum", None)
+        out[name] = res
+    if rows:
+        out["rows"] = parallel_rows(device, dp, tp)
+    return out
+
+
+def parallel_path(ntt16_rate: float):
+    """Path 7: parallel/ on the one card.  (b) four gloo ranks on cuda:0
+    (parallel_rank: dist NTT, ref pipeline at dp 2 x tp 2, ref W-sharded
+    key switch at tp 4), (c) the same programs in a one-rank nccl world,
+    (d) scripts.bench_dist's card mode on four gloo ranks with the cost
+    model anchored on path 2's NTT/s.  The path's launches are the
+    sharded calls' (each program's own window, every rank's), and each
+    program must launch its kernels (PAR_NEEDS; the limb-sharded NTT K5);
+    any failed rank or check fails the script.  Returns (rows, summary,
+    launches)."""
+    from matrix_fhe_tpu_torch.parallel import launch
+    from matrix_fhe_tpu_torch.scripts import bench_dist as bd
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    launches: dict = {}
+    summary = {}
+    rows = []
+    for label, ranks, backend, dp, tp in (("gloo4", 4, "gloo", 2, 2),
+                                          ("nccl1", 1, "nccl", 1, 1)):
+        t0 = time.perf_counter()
+        res = launch.run_world(parallel_rank, ranks, backend, "cuda", WORLD_S,
+                               dp, tp, label == "gloo4")
+        wall = time.perf_counter() - t0
+        r0 = res[0]
+        checks = {
+            "dist NTT == single-device forward_plain":
+                r0["ntt"]["equal_single"],
+            "dist NTT inverse exact": all(r["ntt"]["inverse_exact"]
+                                          for r in res),
+            "pipeline == roundtrip_batch": r0["pipeline"]["equal_unsharded"],
+            f"pipeline err < {TOL}": (r0["pipeline"]["finite"]
+                                      and r0["pipeline"]["err"] < TOL),
+            "key switch == unsharded": r0["keyswitch"]["equal_unsharded"],
+            "same keys on every rank": all(r["keyswitch"]["same_inputs"]
+                                           for r in res),
+            "noise < 2^25": r0["keyswitch"]["noise"] < 1 << 25}
+        what = ("a validation, not a scaling figure" if ranks > 1
+                else "the nccl wiring")
+        log(f"[parallel] {label}: {ranks} {backend} rank(s) on one card "
+            f"({what}), world wall {wall:.1f} s; checks "
+            + ", ".join(f"{k}: {v}" for k, v in checks.items()))
+        for prog, keys in (("ntt", ("fwd_ms", "inv_ms", "fwd_first_ms",
+                                     "single_plain_ms")),
+                           ("pipeline", ("ms", "err")),
+                           ("keyswitch", ("ms", "noise"))):
+            log(f"[parallel] {label} {prog}: " + "; ".join(
+                f"rank {i} block {r[prog]['block']} "
+                + " ".join(f"{k} {r[prog][k]:.3f}" for k in keys
+                           if k in r[prog])
+                + f" wall {r[prog]['wall_s']:.1f} s, peak "
+                f"{r[prog]['peak'] / 2**30:.3f} GiB" for i, r in enumerate(res)))
+        if not all(checks.values()):
+            raise AssertionError(f"path 7 {label}: a check failed: {checks}")
+        by_prog = {}
+        for prog, needs in PAR_NEEDS.items():
+            got = by_prog[prog] = {}
+            for r in res:
+                for k, v in r[prog]["launches"].items():
+                    got[k] = got.get(k, 0) + v
+            log(f"[parallel] {label} {prog}: launches of the sharded calls "
+                f"(all ranks) {got}")
+            missing = [k for k in needs if got.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(
+                    f"path 7 {label} {prog} launched no {missing}: {got}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+        if "rows" in r0:
+            rows += r0["rows"]
+        summary[f"parallel_{label}"] = {
+            "world_wall_s": wall, "ranks": ranks, "backend": backend,
+            "ntt_fwd_ms": [r["ntt"]["fwd_ms"] for r in res],
+            "ntt_inv_ms": [r["ntt"]["inv_ms"] for r in res],
+            "ntt_fwd_first_ms": [r["ntt"]["fwd_first_ms"] for r in res],
+            "ntt_single_plain_ms": r0["ntt"]["single_plain_ms"],
+            "pipeline_ms": [r["pipeline"]["ms"] for r in res],
+            "pipeline_err": r0["pipeline"]["err"],
+            "keyswitch_ms": [r["keyswitch"]["ms"] for r in res],
+            "keyswitch_noise": r0["keyswitch"]["noise"],
+            "peak_bytes": {prog: [r[prog]["peak"] for r in res]
+                           for prog in ("ntt", "pipeline", "keyswitch")},
+            "launches": by_prog}
+
+    t0 = time.perf_counter()
+    bench = bd.card(4, "gloo", ntt16_rate, NVLINK_GBPS, IB_GBPS,
+                    timeout_s=WORLD_S)
+    if bench["launches"].get("four_step_fwd", 0) <= 0:
+        raise AssertionError(f"bench_dist's limb-sharded NTT launched no K5: "
+                             f"{bench['launches']}")
+    for k, v in bench.pop("launches").items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"[parallel] bench_dist card mode ({time.perf_counter() - t0:.1f} s, "
+        f"{bench.get('note', '')}): " + json.dumps(bench))
+    if not bench["ok"]:
+        raise AssertionError("bench_dist card mode: a sharded NTT disagrees")
+    summary["parallel_bench_dist"] = bench
+    summary["parallel_parent_memory_held"] = held
+    log(f"[parallel] launches over path 7 (the sharded calls on every rank "
+        f"of the three worlds): {launches}")
+    for row in rows:
+        row["launches"] = launches.get(row.pop("key"), 0)
+    return rows, summary, launches
 
 
 def serialization_check(ctx, ct_re, ct_im, sk) -> dict:
@@ -1636,6 +1884,14 @@ def main() -> int:
     summary.update(probe_summary)
     walls["6_probes"] = time.perf_counter() - t_path
 
+    # -- path 7: parallel/ on a world of ranks sharing the card -------------
+    t_path = time.perf_counter()
+    par_rows, par_summary, par_launches = parallel_path(
+        summary["ntt35_per_sec"])
+    rows += par_rows
+    summary.update(par_summary)
+    walls["7_parallel"] = time.perf_counter() - t_path
+
     for row in rows:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its path")
@@ -1646,7 +1902,7 @@ def main() -> int:
     # conjugation's 128) carries only theirs
     by_path = (("1_roundtrip", launches), ("3_matmul", mm_launches),
                ("4_gl2", gl2_launches), ("4_gl2_conj", conj_launches),
-               ("5_keyswitch", ks_launches))
+               ("5_keyswitch", ks_launches), ("7_parallel", par_launches))
     for key, prefix in (("ntt_mul_ntt", "ntt_mul_ntt"), ("stage", "stage (K1"),
                         ("stage_tw", "stage_tw (K10a")):
         counts = {path: c.get(key, 0) for path, c in by_path}

@@ -25,6 +25,10 @@ bit by tests/test_torch_*.py.
   * Key switching: relinearized multiplication, rescale and Galois
     rotations (models/keyswitch.py), and the leveled chain (LeveledChain)
     that composes them at depth.
+  * parallel/: the sharded programs on torch.distributed, one process a
+    rank (the coefficient-sharded four-step NTT, the dp x tp sharded
+    roundtrip, the W-sharded key switch), and launch.run_world, a world
+    of ranks on one machine; scripts/bench_dist runs them.
   * utils/: checkpoints in the JAX package's .npz format
     (serialization), timers (timer), traces (profiler) and logging;
     native/golden, an independent C++ oracle; scripts/rt_phases, the

@@ -38,15 +38,18 @@ class BatchedEncoder:
         self.encoder = Encoder(params, t, device=device)
         self.wt = wt or WTransform(params, t, device=device)
 
-    def encode_to_wntt_eval(self, m_re: torch.Tensor, m_im: torch.Tensor
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[W, n, n] f64 pair -> ([L, W, n, n], [L, W, n, n]) int64: on the
+    def encode_to_wcoeff(self, m_re: torch.Tensor, m_im: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[W, n, n] f64 pair -> ([L, W, n, n], [L, W, n, n]) int64 in the
+        W-coefficient domain, the encode before its W-CRT forward: on the
         words when Delta is a power of two, else by llround(c Delta) mod q
-        after the f64 sandwich and W-IDFT (encode_pair there)."""
+        after the f64 sandwich and W-IDFT (encode_pair there).  Each step
+        here depends on every matrix row y (the XY-IDFT contracts them, the
+        fixed-point exponents are maxima over the whole message); the
+        W-CRT forward after it takes each row alone."""
         if not self.encoder.words_route:
             xr, xi = self.encoder.idft2_exact(m_re, m_im)
-            rr, ri = self.encoder.quantize(*self.wt.dft_inverse_pair(xr, xi))
-            return self.wt.forward(rr), self.wt.forward(ri)
+            return self.encoder.quantize(*self.wt.dft_inverse_pair(xr, xi))
         W = m_re.shape[0]
         wr, wi, e = self.encoder.idft2_words(m_re, m_im)
         flat_r = tuple(w.reshape(W, -1) for w in wr)
@@ -54,8 +57,14 @@ class BatchedEncoder:
         wr2, wi2, e2 = self.wt.dft_inverse_words_w(flat_r, flat_i, e)
         rr, ri = self.encoder.quantize_words(wr2, wi2, e2)
         shape = (rr.shape[0],) + tuple(m_re.shape)
-        return (self.wt.forward(rr.reshape(shape)),
-                self.wt.forward(ri.reshape(shape)))
+        return rr.reshape(shape), ri.reshape(shape)
+
+    def encode_to_wntt_eval(self, m_re: torch.Tensor, m_im: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[W, n, n] f64 pair -> ([L, W, n, n], [L, W, n, n]) int64:
+        encode_to_wcoeff, then the W-CRT forward (K1)."""
+        rr, ri = self.encode_to_wcoeff(m_re, m_im)
+        return self.wt.forward(rr), self.wt.forward(ri)
 
     def decode_from_wntt_eval(self, ev_re: torch.Tensor, ev_im: torch.Tensor,
                               delta_override: float | None = None
@@ -67,8 +76,21 @@ class BatchedEncoder:
             fr, fi = self.encoder.dequantize_exact_delta(
                 self.wt.inverse(ev_re), self.wt.inverse(ev_im), delta_override)
             return self.encoder.dft2_exact(*self.wt.dft_forward_pair(fr, fi))
-        both = torch.stack([ev_re, ev_im], dim=2)             # [L, W, 2, n, n]
-        f2 = self.wt.inverse_scaled_compose(both, self.params.delta)
+        return self.decode_composed(self.compose_pair(ev_re, ev_im))
+
+    def compose_pair(self, ev_re: torch.Tensor, ev_im: torch.Tensor
+                     ) -> torch.Tensor:
+        """The decode's first step, K3: [L, W, ...] int64 pair -> the
+        centered CRT compose / Delta, f64 [W, 2, ...] (re, im), element by
+        element of the trailing axes."""
+        both = torch.stack([ev_re, ev_im], dim=2)
+        return self.wt.inverse_scaled_compose(both, self.params.delta)
+
+    def decode_composed(self, f2: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The rest of the decode: W-DFT and XY-DFT (K4) of compose_pair's
+        [W, 2, n, n] -> [W, n, n] f64 pair.  It depends on every matrix row
+        y, as the encode's first steps do."""
         fr, fi = f2[:, 0], f2[:, 1]
         wr, wi, e = self.wt.dft_forward_words(fr, fi)
         wr = tuple(w.reshape(fr.shape) for w in wr)

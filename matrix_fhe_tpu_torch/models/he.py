@@ -10,7 +10,8 @@ device:
   * encrypt (single message) and decrypt: b + a*s (K2);
   * add_ciphertexts, multiply_ciphertexts_raw, multiply_plain (K1 and its
     twiddle form, K10a), add_plain;
-  * decrypt_and_decode / roundtrip: the words-chained decode (K3, K4).
+  * decrypt_and_decode / roundtrip: the words-chained decode (K3, K4);
+    roundtrip_batch, the roundtrip of a batch of messages.
 
 The reference-parity randomness streams are constants of the parameter
 set, so their W-eval forms are built once per context (he.py:295-325 in
@@ -188,11 +189,31 @@ class HEContext:
         return self.batched_encoder.decode_from_wntt_eval(
             *self._roundtrip_combine(pr, pi, t))
 
+    def roundtrip_batch(self, m_re: torch.Tensor, m_im: torch.Tensor,
+                        sk: SecretKey) -> Tuple[torch.Tensor, torch.Tensor]:
+        """roundtrip over a batch [B, W, n, n] -> [B, W, n, n] pair, the
+        counterpart of jax.vmap(roundtrip_fn, in_axes=(0, 0, None)): every
+        message takes the same parity a and e, and the fixed-point
+        exponents of each message are its own, as under vmap.  One message
+        at a time; t = a*s is computed once for the batch."""
+        if m_re.shape != m_im.shape or m_re.dim() != 4:
+            raise ValueError(f"batch pair {tuple(m_re.shape)} / "
+                             f"{tuple(m_im.shape)} is not [B, W, n, n]")
+        t = self.xntt.mul_s(self._parity_a_eval, sk.s_mont)
+        be = self.batched_encoder
+        outs = [be.decode_from_wntt_eval(*self._roundtrip_combine(
+            *be.encode_to_wntt_eval(m_re[b], m_im[b]), t))
+            for b in range(m_re.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+
     def _roundtrip_combine(self, pr: torch.Tensor, pi: torch.Tensor,
-                           t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                           t: torch.Tensor, rows: slice = slice(None)
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The roundtrip's elementwise middle: b = m - t + e (encrypt on the
-        parity streams) and ev = b + t (decrypt), given t = a*s."""
-        e_eval = None if self.zero_noise else self._parity_e_eval
+        parity streams) and ev = b + t (decrypt), given t = a*s; `rows`
+        selects the matrix rows y of e that pr, pi and t hold."""
+        e_eval = None if self.zero_noise else self._parity_e_eval[:, :, rows]
         return tuple(mm.add_mod(self._combine(m, t, e_eval), t, self._q4)
                      for m in (pr, pi))
 

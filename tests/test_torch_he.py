@@ -165,7 +165,9 @@ def test_package_never_imports_jax():
             "serialization, logging\n"
             "from matrix_fhe_tpu_torch.native import golden\n"
             "from matrix_fhe_tpu_torch.scripts import micro_vpu, "
-            "micro_coissue, ks_phases, rt_phases\n"
+            "micro_coissue, ks_phases, rt_phases, bench_dist\n"
+            "from matrix_fhe_tpu_torch.parallel import launch, multihost, "
+            "mesh, dist_ntt, pipeline, keyswitch\n"
             "tablegen.available()\n"
             "assert golden.available()\n"
             "ctx = m.init_he_backend('tiny', device='cpu')\n"
