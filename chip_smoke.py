@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from matrix_fhe_tpu_torch/csrc/ (one nvcc per
-source, in parallel) and drives seven paths of the port through their
+source, in parallel) and drives eight paths of the port through their
 public entry points, each with the launch counts set to 0 just before it
 and read just after:
 
@@ -54,7 +54,8 @@ and read just after:
      (parallel.launch.run_world, spawned, with the kernels already built
      here): four gloo ranks run the coefficient-sharded NTT at N = 2^17,
      L = 4, B = 2 over all four (equal to the single-device
-     forward_plain, exact inverse), ShardedPipeline at ref on dp 2 x tp 2
+     FourStepNTT.forward, the stage route, and to forward_plain; exact
+     inverse), ShardedPipeline at ref on dp 2 x tp 2
      over 4 messages of default_rng(7).uniform(-4, 4) (equal to
      HEContext.roundtrip_batch bit for bit, error < 1e-4) and the
      W-sharded multiply_relinearize at ref over tp 4 (keys made on every
@@ -71,7 +72,23 @@ and read just after:
      twiddle form to their plain versions at the dist NTT's stage shapes,
      K1 on the key switch's lane-sliced QP W-CRT table and K2 at the
      pipeline's row block.  Times and per-rank peak memory are logged as
-     four ranks sharing one card: a validation, not a scaling figure.
+     four ranks sharing one card: a validation, not a scaling figure;
+  8. the entry points, each run as its own process from the repository
+     root so that the real command line is what is checked: the five
+     examples at their JAX default presets (python -m
+     matrix_fhe_tpu_torch.examples.main at ref, matmul at ref,
+     matmul_gl2, relinearize and leveled at mid), scripts.bench at its
+     defaults (N = 2^16, L = 16, B = 128, 35 and 28 bits, the ref gate;
+     its JSON line is logged) and entry --dryrun 4 (dryrun_multichip(4):
+     four gloo ranks sharing the card); each must exit 0, print its pass
+     line and launch the kernels it runs (its {"launches": ...} line,
+     which counts the program's own calls: not its set-up, keys,
+     encryptions, oracles, baselines, fences or rank 0's unsharded
+     references);
+     then, in process, FourStepNTT at N = 2^13, 2^15 and 2^17 (n1 != n2:
+     the stage route, K10a's twiddle form and K1, never K5) held to
+     forward_plain / inverse_plain bit for bit, and both kernels at the
+     route's N = 2^17 stage shapes.
 
 Every kernel is held bit for bit against its plain PyTorch version at the
 shapes its path gives it, and both are timed, with the least time the card
@@ -90,7 +107,9 @@ K1's inverse), the yardstick of its fusion.  The rows of K2, K1 and K10a's
 twiddle form carry their launches on every path (`launches_by_path`, the
 conjugation of path 4 as "4_gl2_conj"); K10a's twiddle-form rows carry only
 the path that runs their shape (path 5 at 64 points, the conjugation at
-128, path 7's dist NTT at 256).  The SASS check fails if
+128, path 7's dist NTT at 256, path 8's stage route "8_four_step" at 256
+on [4, 1024, 256]); path 8's entry points count as "8_entry_points", the
+sum of the {"launches": ...} lines of its processes.  The SASS check fails if
 a kernel whose products run on the tensor cores (K1, K2, K4, K6, K7, and
 K12's mxu, both and dep instantiations) has no wgmma instruction.
 Fails (nonzero exit, no result line) without a CUDA device, on a build or
@@ -827,8 +846,9 @@ def leveled_path():
     from matrix_fhe_tpu_torch.ops import _backend as be
     from matrix_fhe_tpu_torch.ops import modmath as mm
     from matrix_fhe_tpu_torch.scripts import ks_phases
-    from matrix_fhe_tpu_torch.scripts.bench_dist import relin_noise as noise
-    from matrix_fhe_tpu_torch.utils.debug import composed_magnitude
+    from matrix_fhe_tpu_torch.utils.debug import (composed_magnitude,
+                                                  ring_mul)
+    from matrix_fhe_tpu_torch.utils.debug import relin_noise as noise
 
     p = get_params("ref")
     W, n, L = p.phi, p.n, len(p.moduli)
@@ -866,10 +886,6 @@ def leveled_path():
     mr_ms = statistics.median(
         cuda_ms(lambda: rc.multiply_relinearize(ct1, ct2, rlk), warmup=False)
         for _ in range(3))
-    def ring_mul(cx, a, b):
-        return cx.xntt.inverse(cx.xntt.forward_mul(
-            b, cx.xntt.forward_mul(a, cx._r2_tw)))
-
     relin_noise = noise(ctx, ct, ct1, ct2, sk)
     log(f"[ks] relinearized multiply at ref: first call "
         f"{steps['multiply_relinearize_first']:.1f} ms, median of 3 "
@@ -1180,7 +1196,7 @@ def parallel_rows(device, dp: int, tp: int) -> list:
     primes = generate_primes_1mod(PAR_NTT_L, 35, 2 * PAR_NTT_N)
     plan = FourStepPlan.make(PAR_NTT_N, primes)
     dn = DistFourStepNTT(plan, coeff, "coeff", device)
-    st1, st2, tw = dn._st["t1f"], dn._st["t2f"], dn._tw_f
+    st1, st2, tw = dn.stages.st["t1f"], dn.stages.st["t2f"], dn.stages.tw_f
     gen = torch.Generator(device="cuda").manual_seed(17)
     x1 = random_residues(primes, (PAR_NTT_B * plan.n2 // world, plan.n1), gen)
     x2 = random_residues(primes, (PAR_NTT_B * plan.n1 // world, plan.n2), gen)
@@ -1293,8 +1309,9 @@ def parallel_path(ntt16_rate: float):
         wall = time.perf_counter() - t0
         r0 = res[0]
         checks = {
-            "dist NTT == single-device forward_plain":
+            "dist NTT == single-device forward (stage route)":
                 r0["ntt"]["equal_single"],
+            "dist NTT == forward_plain": r0["ntt"]["equal_plain"],
             "dist NTT inverse exact": all(r["ntt"]["inverse_exact"]
                                           for r in res),
             "pipeline == roundtrip_batch": r0["pipeline"]["equal_unsharded"],
@@ -1310,7 +1327,7 @@ def parallel_path(ntt16_rate: float):
             f"({what}), world wall {wall:.1f} s; checks "
             + ", ".join(f"{k}: {v}" for k, v in checks.items()))
         for prog, keys in (("ntt", ("fwd_ms", "inv_ms", "fwd_first_ms",
-                                     "single_plain_ms")),
+                                     "single_ms")),
                            ("pipeline", ("ms", "err")),
                            ("keyswitch", ("ms", "noise"))):
             log(f"[parallel] {label} {prog}: " + "; ".join(
@@ -1342,7 +1359,7 @@ def parallel_path(ntt16_rate: float):
             "ntt_fwd_ms": [r["ntt"]["fwd_ms"] for r in res],
             "ntt_inv_ms": [r["ntt"]["inv_ms"] for r in res],
             "ntt_fwd_first_ms": [r["ntt"]["fwd_first_ms"] for r in res],
-            "ntt_single_plain_ms": r0["ntt"]["single_plain_ms"],
+            "ntt_single_ms": r0["ntt"]["single_ms"],
             "pipeline_ms": [r["pipeline"]["ms"] for r in res],
             "pipeline_err": r0["pipeline"]["err"],
             "keyswitch_ms": [r["keyswitch"]["ms"] for r in res],
@@ -1370,6 +1387,165 @@ def parallel_path(ntt16_rate: float):
     for row in rows:
         row["launches"] = launches.get(row.pop("key"), 0)
     return rows, summary, launches
+
+
+# -- path 8: the entry points, each in a process of its own ---------------------
+
+ENTRY_S = 600                   # one entry point's time limit
+# (label, command after the interpreter, pass line, the kernels its own
+# calls must launch -- each prints the launches of those calls alone, not
+# of its set-up, keys, encryptions, oracles, baselines, fences or rank 0's
+# unsharded references: the launch keys of K1 stage, K10a-tw stage_tw, K2
+# ntt_mul_ntt, K3 inv_compose, K4 fp_cmatmul, K5 four_step_fwd, K6 cgemm,
+# K7 gemm2x2)
+ENTRY_POINTS = (
+    ("main", ["-m", "matrix_fhe_tpu_torch.examples.main"], r"SUCCESS \(",
+     ("stage", "ntt_mul_ntt", "inv_compose", "fp_cmatmul")),
+    ("matmul", ["-m", "matrix_fhe_tpu_torch.examples.matmul"],
+     r"\[matmul\] PASS$", ("cgemm", "ntt_mul_ntt", "stage", "fp_cmatmul")),
+    ("matmul_gl2", ["-m", "matrix_fhe_tpu_torch.examples.matmul_gl2"],
+     r"\[gl2-gemm\] OK$", ("gemm2x2", "ntt_mul_ntt", "stage", "fp_cmatmul")),
+    ("relinearize", ["-m", "matrix_fhe_tpu_torch.examples.relinearize"],
+     r"\[relin\] PASS$", ("stage_tw", "stage")),
+    ("leveled", ["-m", "matrix_fhe_tpu_torch.examples.leveled"],
+     r"\[leveled\] \|ct - oracle\| composed max = \d+ \(OK\)$",
+     ("stage_tw", "stage", "ntt_mul_ntt")),
+    ("bench", ["-m", "matrix_fhe_tpu_torch.scripts.bench"], r'^\{"metric": ',
+     ("four_step_fwd", "stage", "ntt_mul_ntt", "inv_compose", "fp_cmatmul")),
+    ("dryrun_multichip(4)", ["-m", "matrix_fhe_tpu_torch.entry", "--dryrun",
+                             "4"], r"\[dryrun\] OK$",
+     ("stage", "stage_tw", "ntt_mul_ntt", "inv_compose", "fp_cmatmul",
+      "gemm2x2")),
+)
+# FourStepNTT's sizes held to its plain version: n1 != n2 takes the stage
+# route (N = 2^13 is 64 x 128, 2^15 128 x 256, 2^17 256 x 512)
+FOUR_STEP_LOGS, FOUR_STEP_L, FOUR_STEP_B = (13, 15, 17), 4, 2
+
+
+def entry_point(label, args, pass_line, needs) -> dict:
+    """Run one entry point as its own process from the repository root:
+    exit code 0, its pass line, and a {"launches": ...} line that names
+    every kernel in `needs`.  Returns its wall time, launches and, for the
+    bench, its JSON line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=ENTRY_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines[-12:] + [ln for ln in proc.stderr.splitlines()
+                               if ln.startswith("[bench]")]:
+        log(f"[entry {label}] {line}")
+    if proc.returncode != 0:
+        log(f"[entry {label}] stderr: {proc.stderr[-4000:]}")
+        raise AssertionError(f"{label} exited with {proc.returncode}")
+    if not any(re.search(pass_line, line) for line in lines):
+        raise AssertionError(f"{label}: no pass line /{pass_line}/")
+    found = [json.loads(line)["launches"] for line in lines
+             if line.startswith('{"launches": ')]
+    if len(found) != 1:
+        raise AssertionError(f"{label}: {len(found)} launches lines")
+    launches = found[0]
+    missing = [k for k in needs if launches.get(k, 0) <= 0]
+    log(f"[entry {label}] exit 0 in {wall:.1f} s; launches {launches}")
+    if missing:
+        raise AssertionError(f"{label} launched no {missing}: {launches}")
+    out = {"wall_s": wall, "launches": launches}
+    if label == "bench":
+        out["json"] = json.loads(next(line for line in lines
+                                      if line.startswith('{"metric": ')))
+    return out
+
+
+def four_step_check(gen):
+    """FourStepNTT.forward / inverse on the card at N = 2^13, 2^15, 2^17
+    (L = 4 x 35 bits, B = 2), held to forward_plain / inverse_plain bit
+    for bit, counted: the stage route, K10a-tw and K1, and no K5.  Then
+    K10a-tw and K1 against their plain versions at the route's N = 2^17
+    stage shapes.  Returns (rows, summary, launches)."""
+    from matrix_fhe_tpu_torch.ops import _backend as be
+    from matrix_fhe_tpu_torch.ops.ntt_large import (FourStepNTT, FourStepPlan,
+                                                    generate_primes_1mod)
+    summary = {}
+    objs = {}
+    torch.cuda.synchronize()
+    be.reset_launches()
+    for lg in FOUR_STEP_LOGS:
+        n = 1 << lg
+        primes = generate_primes_1mod(FOUR_STEP_L, 35, 2 * n)
+        ntt = objs[lg] = FourStepNTT(FourStepPlan.make(n, primes), "cuda")
+        x = random_residues(primes, (FOUR_STEP_B, n), gen)
+        spec = ntt.forward(x)
+        back = ntt.inverse(spec)
+        torch.cuda.synchronize()
+        same = (torch.equal(spec, ntt.forward_plain(x))
+                and torch.equal(back, ntt.inverse_plain(spec))
+                and torch.equal(back, x))
+        fwd_ms = cuda_ms(lambda: ntt.forward(x), 5)
+        inv_ms = cuda_ms(lambda: ntt.inverse(spec), 5)
+        plain_ms = cuda_ms(lambda: ntt.forward_plain(x), 2)
+        summary[f"four_step_2^{lg}"] = {"fwd_ms": fwd_ms, "inv_ms": inv_ms,
+                                        "fwd_plain_ms": plain_ms}
+        log(f"[four-step] N = 2^{lg} ({ntt.plan.n1} x {ntt.plan.n2}), L = "
+            f"{FOUR_STEP_L}, B = {FOUR_STEP_B}: forward {fwd_ms:.3f} ms, "
+            f"inverse {inv_ms:.3f} ms, forward_plain {plain_ms:.3f} ms; "
+            f"== forward_plain / inverse_plain, inverse exact: {same}")
+        if not same:
+            raise AssertionError(f"FourStepNTT at N = 2^{lg} on the card "
+                                 "differs from its plain version")
+    torch.cuda.synchronize()
+    launches = dict(be.LAUNCHES)
+    log(f"[four-step] launches (first calls and the timed ones): {launches}")
+    if launches.get("four_step_fwd", 0) or launches.get("four_step_inv", 0):
+        raise AssertionError(f"the stage route launched K5: {launches}")
+    if launches.get("stage", 0) <= 0 or launches.get("stage_tw", 0) <= 0:
+        raise AssertionError(f"the stage route launched no K1 / K10a-tw: "
+                             f"{launches}")
+    st = objs[FOUR_STEP_LOGS[-1]].stages
+    p = st.plan
+    st1, st2 = st.st["t1f"], st.st["t2f"]
+    x1 = random_residues(p.moduli, (FOUR_STEP_B * p.n2, p.n1), gen)
+    x2 = random_residues(p.moduli, (FOUR_STEP_B * p.n1, p.n2), gen)
+    rows = [check_kernel(
+        f"stage_tw (K10a, FourStepNTT stage route stage 1 x twiddle, N = "
+        f"2^{FOUR_STEP_LOGS[-1]}, {list(x1.shape)}, twiddle "
+        f"{list(st.tw_f.shape)})", "stage_tw",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:460",
+        lambda: st1.kernel(x1, st.tw_f), lambda: st1.plain(x1, st.tw_f),
+        [st1.table, x1, st.tw_f], stage_work(st1, x1))]
+    rows[0]["paths"] = ("8_four_step",)
+    rows.append(check_kernel(
+        f"stage (K1, FourStepNTT stage route stage 2, N = "
+        f"2^{FOUR_STEP_LOGS[-1]}, {list(x2.shape)})", "stage",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
+        lambda: st2.kernel(x2), lambda: st2.plain(x2), [st2.table, x2],
+        stage_work(st2, x2)))
+    for row in rows:
+        row["launches"] = launches.get(row.pop("key"), 0)
+    return rows, summary, launches
+
+
+def entry_points_path(gen):
+    """Path 8: each example at its JAX default preset, scripts.bench at its
+    defaults and entry.dryrun_multichip(4), each as its own process (exit
+    code 0, its pass line, the kernels it must launch); then FourStepNTT's
+    stage route in process (four_step_check).  Returns (rows, summary,
+    launches of the entry points, launches of the stage-route check)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary, launches = {}, {}
+    for label, args, pass_line, needs in ENTRY_POINTS:
+        res = entry_point(label, args, pass_line, needs)
+        summary[f"entry_{label}_wall_s"] = res["wall_s"]
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        if "json" in res:
+            summary["bench"] = res["json"]
+            log("[bench] " + json.dumps(res["json"]))
+    rows, ntt_summary, ntt_launches = four_step_check(gen)
+    summary.update(ntt_summary)
+    return rows, summary, launches, ntt_launches
 
 
 def serialization_check(ctx, ct_re, ct_im, sk) -> dict:
@@ -1892,6 +2068,14 @@ def main() -> int:
     summary.update(par_summary)
     walls["7_parallel"] = time.perf_counter() - t_path
 
+    # -- path 8: the entry points, each its own process; FourStepNTT's stage
+    # route (K10a-tw, K1) in process -----------------------------------------
+    t_path = time.perf_counter()
+    ep_rows, ep_summary, ep_launches, fs_launches = entry_points_path(gen)
+    rows += ep_rows
+    summary.update(ep_summary)
+    walls["8_entry_points"] = time.perf_counter() - t_path
+
     for row in rows:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its path")
@@ -1902,7 +2086,8 @@ def main() -> int:
     # conjugation's 128) carries only theirs
     by_path = (("1_roundtrip", launches), ("3_matmul", mm_launches),
                ("4_gl2", gl2_launches), ("4_gl2_conj", conj_launches),
-               ("5_keyswitch", ks_launches), ("7_parallel", par_launches))
+               ("5_keyswitch", ks_launches), ("7_parallel", par_launches),
+               ("8_entry_points", ep_launches), ("8_four_step", fs_launches))
     for key, prefix in (("ntt_mul_ntt", "ntt_mul_ntt"), ("stage", "stage (K1"),
                         ("stage_tw", "stage_tw (K10a")):
         counts = {path: c.get(key, 0) for path, c in by_path}

@@ -27,8 +27,12 @@ bit by tests/test_torch_*.py.
     that composes them at depth.
   * parallel/: the sharded programs on torch.distributed, one process a
     rank (the coefficient-sharded four-step NTT, the dp x tp sharded
-    roundtrip, the W-sharded key switch), and launch.run_world, a world
-    of ranks on one machine; scripts/bench_dist runs them.
+    roundtrip, the W-sharded key switch and gl2 GEMM), and
+    launch.run_world, a world of ranks on one machine; scripts/bench_dist
+    runs them.
+  * The repo's entry points as programs: examples/ (main, matmul,
+    matmul_gl2, relinearize, leveled), scripts/bench (the headline JSON
+    line) and entry (entry(), dryrun_multichip(n)).
   * utils/: checkpoints in the JAX package's .npz format
     (serialization), timers (timer), traces (profiler) and logging;
     native/golden, an independent C++ oracle; scripts/rt_phases, the

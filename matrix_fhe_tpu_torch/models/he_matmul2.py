@@ -29,8 +29,9 @@ kernel there); the transforms run kernel K1.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -145,6 +146,14 @@ class HEMatmul2:
     def _ry_map(self, z: torch.Tensor) -> torch.Tensor:
         return z.index_select(2, self._ry)
 
+    def on_lanes(self, lanes: slice) -> "HEMatmul2":
+        """This tensor for the W lanes `lanes` of its output: X's blocks
+        hold those lanes and Y is whole, since sigma's lane flip reads Y's
+        lanes flip[w] (parallel/gl2.py, every rank its block of lanes)."""
+        view = copy.copy(self)
+        view._flip = self._flip[lanes]
+        return view
+
     def _gemm2x2(self, u1, u2, v1, v2):
         """The four tensor products e_ij = n * U_i^T @ V_j mod q: kernel
         K7 on the card, its plain version on the CPU."""
@@ -255,17 +264,28 @@ class Gl2Conj:
 
 class Gl2GemmRelin:
     """Switch keys and relinearization for GemmTensor2 -> standard gl2
-    ciphertext, over RelinContext's gadget, base conversion and ModDown."""
+    ciphertext, over RelinContext's gadget, base conversion and ModDown.
+
+    `wt_map`, where given, maps every W-CRT of the relinearization (the Q
+    basis' and each QP chunk's) to the transform it runs:
+    parallel/gl2.py's W-sharded ones.  The keys come from a relinearizer
+    without it (gen_keys transforms whole frames)."""
 
     def __init__(self, hm: HEMatmul2, rc: RelinContext | None = None,
-                 chunk_limbs: Optional[int] = None):
+                 chunk_limbs: Optional[int] = None,
+                 wt_map: Optional[Callable] = None):
         self.hm = hm
         self.ctx = hm.ctx
         self.rc = rc or RelinContext(hm.ctx)
         self.chunk_limbs = chunk_limbs
+        self._wt_map = wt_map
+        self._wt_q = self._mapped(hm.ctx.wt)
         self._chunk_cache = {}
         # 2^-64 mod q: the key products leave a factor 2^64 (storage form)
         self._r_inv = [pow(1 << 64, -1, q) for q in self.rc.qp_moduli]
+
+    def _mapped(self, wt):
+        return wt if self._wt_map is None else self._wt_map(wt)
 
     # -- 2D transforms -------------------------------------------------------
 
@@ -296,7 +316,7 @@ class Gl2GemmRelin:
                 xntt = XNTT(sub, ring=self.ctx.ring, tables=t, device=dev)
                 wt = WTransform(sub, t, device=dev)
             self._chunk_cache[(lo, hi)] = (
-                sub, xntt, wt, mm.moduli_col(sub.moduli, 3, dev))
+                sub, xntt, self._mapped(wt), mm.moduli_col(sub.moduli, 3, dev))
         return self._chunk_cache[(lo, hi)]
 
     def _qp_chunks(self):
@@ -387,7 +407,7 @@ class Gl2GemmRelin:
         outs = []
         for e_hi, b_keys, a_keys in ((tt.e10, ks.b1, ks.a1),
                                      (tt.e11, ks.b2, ks.a2)):
-            wc = ctx.wt.inverse(e_hi)
+            wc = self._wt_q.inverse(e_hi)
             src = [rc._extenders[i].scaled_residues(wc[g[0]:g[-1] + 1])
                    for i, g in enumerate(rc.groups)]   # groups are consecutive
             del wc
@@ -398,9 +418,9 @@ class Gl2GemmRelin:
                 k0[lo:hi], k1[lo:hi] = self._relin_chunk(
                     lo, hi, src, [b[lo:hi] for b in b_keys],
                     [a[lo:hi] for a in a_keys])
-            outs.append(ctx.wt.forward(rc._mod_down(k0)))
+            outs.append(self._wt_q.forward(rc._mod_down(k0)))
             del k0
-            outs.append(ctx.wt.forward(rc._mod_down(k1)))
+            outs.append(self._wt_q.forward(rc._mod_down(k1)))
             del k1
         u0, u1, v0, v1 = outs
         q = ctx._q4

@@ -71,6 +71,31 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
+class Launches:
+    """The kernel launches made inside its `with` blocks, summed over them:
+    a program's own calls, without its set-up or its checks.
+
+        own = Launches()
+        with own:
+            y = program(x)
+        own.counts()        # {kernel: launches} of program(x) alone
+    """
+
+    def __init__(self):
+        self._counts = collections.Counter()
+        self._before = collections.Counter()
+
+    def __enter__(self) -> "Launches":
+        self._before = collections.Counter(LAUNCHES)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._counts.update(LAUNCHES - self._before)
+
+    def counts(self) -> dict:
+        return dict(sorted(self._counts.items()))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

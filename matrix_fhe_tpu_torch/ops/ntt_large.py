@@ -13,11 +13,16 @@ consumes that order and returns natural order.  The roots come from the
 smallest primitive root of each modulus, as in the JAX package, so the
 spectra are the same integers.
 
-Kernel K5 (csrc/four_step_ntt.cu) computes the whole forward or inverse on
-a CUDA tensor, with Shoup products on 64-bit words, or on 32-bit words when
-every modulus is below 2^30 (`word_bits`); a CPU tensor takes the plain
-version, which follows the JAX stages as exact float64-digit modular
-matmuls (ops/modmatmul.py).
+On a CUDA tensor, kernel K5 (csrc/four_step_ntt.cu) computes the whole
+forward or inverse of a plan with n1 == n2, with Shoup products on 64-bit
+words, or on 32-bit words when every modulus is below 2^30 (`word_bits`);
+a plan with n1 != n2 (N = 2^13, 2^15, 2^17, ...) takes the stage route,
+FourStepStages: K10a's twiddle form for stage 1 and its twiddle, K1 for
+stage 2, the twist and the inverse's post-scale by mul_mod.  The same
+stages are one rank's part of the coefficient-sharded transform
+(parallel/dist_ntt.py).  A CPU tensor takes the plain version, which
+follows the JAX stages as exact float64-digit modular matmuls
+(ops/modmatmul.py).
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ import torch
 
 from ..config import generate_primes_1mod  # noqa: F401  (the JAX module's export)
 from . import _backend as be
-from .modmath import moduli_col, mul_mod, powers
+from .cuda_ntt import Stage
+from .modmath import moduli_col, mul_mod, powers, to_mont
 from .modmatmul import modmatmul
 
 I64 = torch.int64
@@ -149,16 +155,22 @@ class FourStepNTT:
     # -- dispatch ----------------------------------------------------------------
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[L, B, N] -> four-step-order spectrum [L, B, N]."""
-        if be.on_device(x, self._q3):
+        """[L, B, N] -> four-step-order spectrum [L, B, N]: K5 on a CUDA
+        tensor when n1 == n2, else the stage route (K10a-tw, K1)."""
+        if not be.on_device(x, self._q3):
+            return self.forward_plain(x)
+        if self.plan.n1 == self.plan.n2:
             return self.forward_kernel(x)
-        return self.forward_plain(x)
+        return self.forward_stages(x)
 
     def inverse(self, xf: torch.Tensor) -> torch.Tensor:
-        """Four-step-order spectrum -> [L, B, N] natural-order coefficients."""
-        if be.on_device(xf, self._q3):
+        """Four-step-order spectrum -> [L, B, N] natural-order coefficients:
+        K5 on a CUDA tensor when n1 == n2, else the stage route (K1)."""
+        if not be.on_device(xf, self._q3):
+            return self.inverse_plain(xf)
+        if self.plan.n1 == self.plan.n2:
             return self.inverse_kernel(xf)
-        return self.inverse_plain(xf)
+        return self.inverse_stages(xf)
 
     def pointwise_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Spectral pointwise product (order-independent)."""
@@ -192,6 +204,29 @@ class FourStepNTT:
         w = modmatmul(t["t1i"], y, self._q3, self.bits, "left")   # [L, i1, (B, i2)]
         x = w.reshape(L, n1, B, n2).transpose(1, 2).reshape(L, B, p.n)
         return mul_mod(x, t["post_i"][:, None, :], self._q3)      # n^-1 psi^-i
+
+    # -- the stage route: K10a's twiddle form and K1 ------------------------------
+
+    @functools.cached_property
+    def stages(self) -> "FourStepStages":
+        """The transform as two K1 stages on this object's device (tables
+        built at first use)."""
+        return FourStepStages(self.plan, self._t, self.device)
+
+    def forward_stages(self, x: torch.Tensor) -> torch.Tensor:
+        """forward by the stage route; on a CPU tensor the stages' plain
+        versions, the same integers as forward_plain."""
+        p = self.plan
+        L, B = x.shape[0], x.shape[1]
+        return self.stages.forward(x.reshape(L, B, p.n1, p.n2)).reshape(
+            L, B, p.n)
+
+    def inverse_stages(self, xf: torch.Tensor) -> torch.Tensor:
+        """inverse by the stage route (see forward_stages)."""
+        p = self.plan
+        L, B = xf.shape[0], xf.shape[1]
+        return self.stages.inverse(xf.reshape(L, B, p.n1, p.n2)).reshape(
+            L, B, p.n)
 
     # -- kernel K5 ---------------------------------------------------------------
 
@@ -240,6 +275,108 @@ class FourStepNTT:
         return self._launch("four_step_inv", xf, False,
                             (k["roots_i"], None, k["tw_i"]),
                             (k["roots_i"], None, k["post_i"]))
+
+
+def _u64(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().view(np.uint64)
+
+
+def _local_exchange(y: torch.Tensor) -> torch.Tensor:
+    """The exchange of a one-rank transform: [L, B, a, 1, b] -> [1, L, B,
+    a, b], no communication."""
+    return y.permute(3, 0, 1, 2, 4).contiguous()
+
+
+class FourStepStages:
+    """The four-step transform as two exact modular-matmul stages, for
+    rank r of d ranks that split the coefficients (d = 1: the whole
+    transform on one device).  With N = n1 n2 and the [n1, n2] view
+    x[i1, i2] = x[i1 n2 + i2], the rank holds the columns
+    i2 in [r n2/d, (r + 1) n2/d):
+
+      forward, on [L, B, n1, n2/d]:
+        twist     x *= psi^(i1 n2 + i2)         (negacyclic only, mul_mod)
+        stage 1   y[i2, k1] = sum_i1 x[i1, i2] w1^(i1 k1), times the
+                  twiddle w_N^(i2 k1): one launch of K10a's twiddle form
+                  (Stage side 'right' on the [L, B n2/d, n1] rows)
+        exchange  k1 blocks out, i2 blocks in (`exchange`)
+        stage 2   z[k1, k2] = sum_i2 y[i2, k1] w2^(i2 k2): K1 on the
+                  [L, B n1/d, n2] rows
+      giving the k1 rows [L, B, n1/d, n2] of the four-step-order spectrum;
+
+      inverse, on those rows: K1 (stage 2's inverse), the twiddle
+      w_N^-(i2 k1) by mul_mod, the exchange back, K1 (stage 1's inverse)
+      and n^-1 psi^-i by mul_mod, back to [L, B, n1, n2/d] natural-order
+      coefficients.
+
+    `exchange` maps [L, B, a, d, b], block j of axis 3 going to rank j, to
+    [d, L, B, a, b] with block j from rank j; None is d = 1's identity.
+    `tables` are FourStepNTT's canonical tables (any device), so the
+    spectrum is the same integers as forward_plain's.  A CPU tensor runs
+    the stages' plain versions, a CUDA tensor the kernels."""
+
+    def __init__(self, plan: FourStepPlan, tables: Dict[str, torch.Tensor],
+                 device, d: int = 1, r: int = 0, exchange=None):
+        if plan.n1 % d or plan.n2 % d:
+            raise ValueError(f"n1 = {plan.n1} and n2 = {plan.n2} must be "
+                             f"divisible by {d} ranks")
+        if exchange is None and d != 1:
+            raise ValueError("a transform over several ranks needs an exchange")
+        self.plan, self.d = plan, d
+        self._exchange = exchange or _local_exchange
+        n1, n2 = plan.n1, plan.n2
+        c, r1 = n2 // d, n1 // d
+        cols, krows = slice(r * c, (r + 1) * c), slice(r * r1, (r + 1) * r1)
+        L, q = len(plan.moduli), plan.moduli
+        self.st = {k: Stage(_u64(tables[k]), q, "right", device)
+                   for k in ("t1f", "t2f", "t1i", "t2i")}
+        # stage 1's twiddle at [i2 local, k1], in storage form tw * 2^64
+        tw_f = tables["tw_f"][:, :, cols].transpose(1, 2).contiguous()
+        self.tw_f = to_mont(tw_f.cpu(), q).to(device)
+        self._tw_i = tables["tw_i"][:, krows, :].reshape(L, 1, r1, n2).to(
+            device)
+
+        def local_cols(v):          # [L, N] -> [L, 1, n1, n2/d] on the device
+            return v.reshape(L, 1, n1, n2)[..., cols].contiguous().to(device)
+
+        self._twist = local_cols(tables["twist_f"]) if plan.negacyclic \
+            else None
+        self._post = local_cols(tables["post_i"])
+        self._q4 = moduli_col(q, 3, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """i2 columns [L, B, n1, n2/d] -> k1 rows [L, B, n1/d, n2] of the
+        four-step-order spectrum."""
+        p, d = self.plan, self.d
+        L, B = x.shape[0], x.shape[1]
+        c, r1 = p.n2 // d, p.n1 // d
+        if tuple(x.shape) != (L, B, p.n1, c):
+            raise ValueError(f"block {tuple(x.shape)} is not [L, B, "
+                             f"{p.n1}, {c}]")
+        if self._twist is not None:
+            x = mul_mod(x, self._twist, self._q4)
+        rows = x.transpose(2, 3).reshape(L, B * c, p.n1).contiguous()
+        y = self.st["t1f"](rows, twiddle_mont=self.tw_f)   # [L, (B, i2), k1]
+        y = self._exchange(y.reshape(L, B, c, d, r1))      # [j, L, B, i2, k1]
+        y = y.permute(1, 2, 4, 0, 3).reshape(L, B * r1, p.n2)
+        return self.st["t2f"](y.contiguous()).reshape(L, B, r1, p.n2)
+
+    def inverse(self, z: torch.Tensor) -> torch.Tensor:
+        """k1 rows [L, B, n1/d, n2] of the spectrum -> i2 columns
+        [L, B, n1, n2/d] of natural-order coefficients."""
+        p, d = self.plan, self.d
+        L, B = z.shape[0], z.shape[1]
+        c, r1 = p.n2 // d, p.n1 // d
+        if tuple(z.shape) != (L, B, r1, p.n2):
+            raise ValueError(f"block {tuple(z.shape)} is not [L, B, "
+                             f"{r1}, {p.n2}]")
+        y = self.st["t2i"](z.reshape(L, B * r1, p.n2).contiguous())
+        y = mul_mod(y.reshape(L, B, r1, p.n2), self._tw_i, self._q4)
+        y = self._exchange(y.reshape(L, B, r1, d, c))      # [j, L, B, k1, i2]
+        y = y.permute(1, 2, 4, 0, 3).reshape(L, B * c, p.n1)
+        w = self.st["t1i"](y.contiguous())                 # [L, (B, i2), i1]
+        w = w.reshape(L, B, c, p.n1).transpose(2, 3)
+        return mul_mod(w, self._post, self._q4)
 
 
 def word_bits(moduli: Sequence[int]) -> int:

@@ -1,6 +1,7 @@
 """Multi-rank execution on torch.distributed: the port of the JAX
 package's parallel/ (mesh, multihost, the coefficient-sharded four-step
-NTT, the dp x tp sharded roundtrip) and of the W-sharded key switch.
+NTT, the dp x tp sharded roundtrip) and of the W-sharded key switch and
+gl2 GEMM.
 
 JAX runs one program over a Mesh and lets GSPMD place the collectives
 (shard_map, NamedSharding); here each rank is a process holding its local

@@ -34,6 +34,15 @@ from ..ops.wcrt import WTransform
 from . import mesh as meshlib
 
 
+def lane_block(phi: int, mesh: DeviceMesh, axis: str) -> slice:
+    """This rank's block of the phi W lanes over `axis` of `mesh`."""
+    d = mesh.size(mesh.mesh_dim_names.index(axis))
+    if phi % d:
+        raise ValueError(f"{axis} = {d} does not divide W = {phi}")
+    r = mesh.get_local_rank(axis)
+    return slice(r * (phi // d), (r + 1) * (phi // d))
+
+
 class ShardedWTransform:
     """WTransform.forward / inverse on the W-sharded [L, W/d, ...] blocks
     of `axis`."""
@@ -41,13 +50,7 @@ class ShardedWTransform:
     def __init__(self, wt: WTransform, mesh: DeviceMesh, axis: str = "tp"):
         self.params = wt.params
         self.mesh, self.axis = mesh, axis
-        W = wt.params.phi
-        d = mesh.size(mesh.mesh_dim_names.index(axis))
-        if W % d:
-            raise ValueError(f"{axis} = {d} does not divide W = {W}")
-        r = mesh.get_local_rank(axis)
-        lanes = slice(r * (W // d), (r + 1) * (W // d))
-        self.lanes = lanes
+        self.lanes = lanes = lane_block(wt.params.phi, mesh, axis)
 
         def local(stage: Stage) -> Stage:
             t = stage.table.cpu().numpy().view(np.uint64)[:, lanes]

@@ -16,9 +16,9 @@ rank function, fn(device, ...), that launch.run_world runs on every rank:
     (each rank runs K5 on its L/d limbs) and the coefficient-sharded NTT
     at N = 2^17, L = 4, B = 2 (DistFourStepNTT: K10a's twiddle form, K1,
     one all_to_all each way), each held to the single-device transform
-    (N = 2^17 is 256 x 512, which K5 does not take, so its single-device
-    reference is FourStepNTT.forward_plain, called by name), then the
-    cost model for two hosts (cost_model_inputs).  With several ranks on
+    (FourStepNTT.forward: K5 at N = 2^16; at N = 2^17, 256 x 512, which K5
+    does not take, the stage route), then the cost model for two hosts
+    (cost_model_inputs).  With several ranks on
     one card (gloo) the times validate the sharded programs and measure
     no scaling.  --quick shrinks the shapes for a CPU run.
 
@@ -46,7 +46,7 @@ from ..models import rng as refrng
 from ..models.he import Ciphertext, HEContext
 from ..models.keyswitch import RelinContext, RelinKey
 from ..ops import _backend as be
-from ..ops import modmath as mm
+from ..ops._backend import Launches
 from ..ops.ntt_large import FourStepNTT, FourStepPlan
 from ..parallel import launch
 from ..parallel import mesh as meshlib
@@ -54,6 +54,8 @@ from ..parallel import multihost as mh
 from ..parallel.dist_ntt import DistFourStepNTT
 from ..parallel.keyswitch import ShardedKeySwitch
 from ..parallel.pipeline import ShardedPipeline
+from ..utils.debug import relin_noise
+from ..utils.timing import sync
 
 ONE_CARD_NOTE = ("ranks sharing one card: a validation of the sharded "
                  "programs, not a scaling figure")
@@ -73,7 +75,7 @@ def _t(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x).view(np.int64)).to(device)
 
 
-def _sync(device) -> None:
+def sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -84,26 +86,21 @@ def _timed(fn, device, iters: int = 1, together: bool = True):
     runs on a new shape are slower), then `iters` timed calls, the card
     synchronized at both ends.  `together` starts the timed calls on all
     ranks at once (a barrier); else this rank times alone."""
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     out = fn()
-    _sync(device)
+    sync(device)
     first = 1e3 * (time.perf_counter() - t0)
     for _ in range(iters - 1):
         out = fn()
-    _sync(device)
+    sync(device)
     if together:
         dist.barrier()
     t0 = time.perf_counter()
     for _ in range(iters):
         out = fn()
-    _sync(device)
+    sync(device)
     return out, 1e3 * (time.perf_counter() - t0) / iters, first
-
-
-def _launched_since(before: collections.Counter) -> dict:
-    """The kernel launches this rank made since the snapshot `before`."""
-    return dict(collections.Counter(be.LAUNCHES) - before)
 
 
 def _peak(device) -> int | None:
@@ -118,9 +115,10 @@ def rank_dist_ntt(device, n: int, bits: int, limbs: int, batch: int,
                   iters: int = 1) -> dict:
     """DistFourStepNTT over every rank (axis 'coeff'): forward and inverse
     of the i2-sharded input, both gathered.  Rank 0 returns the gathered
-    spectrum, whether it equals the single-device FourStepNTT
-    (forward_plain, by name: the reference for any plan) and that call's
-    time."""
+    spectrum, whether it equals the single-device FourStepNTT.forward
+    (K5, or the stage route where n1 != n2; on the CPU the plain version)
+    and that call's time, and whether it equals forward_plain, the
+    independent reference."""
     primes = generate_primes_1mod(limbs, bits, 2 * n)
     plan = FourStepPlan.make(n, primes, negacyclic=negacyclic)
     mesh = meshlib.make_mesh({"coeff": dist.get_world_size()}, device.type)
@@ -128,22 +126,24 @@ def rank_dist_ntt(device, n: int, bits: int, limbs: int, batch: int,
     x = _t(ntt_input(primes, batch, n, seed), device)
     x4 = x.reshape(limbs, batch, plan.n1, plan.n2)
     xl = meshlib.shard(x4, mesh, (None, None, None, "coeff"))
-    before = collections.Counter(be.LAUNCHES)
-    z, fwd_ms, fwd_first = _timed(lambda: dn.forward(xl), device, iters)
-    back, inv_ms, _ = _timed(lambda: dn.inverse(z), device, iters)
-    launched = _launched_since(before)
+    own = Launches()
+    with own:
+        z, fwd_ms, fwd_first = _timed(lambda: dn.forward(xl), device, iters)
+        back, inv_ms, _ = _timed(lambda: dn.inverse(z), device, iters)
     spectrum = meshlib.gather(z, mesh, (None, None, "coeff", None))
     back = meshlib.gather(back, mesh, (None, None, None, "coeff"))
     out = {"fwd_ms": fwd_ms, "inv_ms": inv_ms, "fwd_first_ms": fwd_first,
            "inverse_exact": bool(torch.equal(back, x4)),
            "block": list(xl.shape), "peak": _peak(device),
-           "launches": launched}
+           "launches": own.counts()}
     if dist.get_rank() == 0:
         out["spectrum"] = spectrum.reshape(limbs, batch, n)
         single = FourStepNTT(plan, device)
-        want, out["single_plain_ms"], _ = _timed(
-            lambda: single.forward_plain(x), device, together=False)
+        want, out["single_ms"], _ = _timed(
+            lambda: single.forward(x), device, together=False)
         out["equal_single"] = bool(torch.equal(out["spectrum"], want))
+        out["equal_plain"] = bool(torch.equal(out["spectrum"],
+                                              single.forward_plain(x)))
     return out
 
 
@@ -163,11 +163,12 @@ def rank_pipeline(device, preset: str, dp: int, tp: int, batch: int,
     mesh = meshlib.make_mesh({"dp": dp, "tp": tp}, device.type)
     sp = ShardedPipeline(ctx, mesh)
     re_l, im_l = sp.shard(re), sp.shard(im)
-    before = collections.Counter(be.LAUNCHES)
-    (dr, di), ms, _ = _timed(lambda: sp.roundtrip(re_l, im_l, sk),
-                             device)
+    own = Launches()
+    with own:
+        (dr, di), ms, _ = _timed(lambda: sp.roundtrip(re_l, im_l, sk),
+                                 device)
     out = {"ms": ms, "block": list(re_l.shape), "peak": _peak(device),
-           "launches": _launched_since(before)}
+           "launches": own.counts()}
     dr, di = sp.gather(dr), sp.gather(di)
     if dist.get_rank() == 0:
         out["out"] = (dr, di)
@@ -227,11 +228,12 @@ def rank_keyswitch(device, preset: str, tp: int, inputs=None) -> dict:
     c1, c2 = ks.shard(ct1), ks.shard(ct2)
     if dist.get_rank() != 0:
         del rlk                                   # only the lanes stay
-    before = collections.Counter(be.LAUNCHES)
-    got, ms_, _ = _timed(lambda: ks.multiply_relinearize(c1, c2, rlk_l),
-                         device)
+    own = Launches()
+    with own:
+        got, ms_, _ = _timed(lambda: ks.multiply_relinearize(c1, c2, rlk_l),
+                             device)
     out = {"ms": ms_, "block": list(c1.b.shape), "peak": _peak(device),
-           "launches": _launched_since(before),
+           "launches": own.counts(),
            "same_inputs": all(torch.equal(s, sums) for s in every)}
     got = ks.gather(got)
     if dist.get_rank() == 0:
@@ -242,22 +244,6 @@ def rank_keyswitch(device, preset: str, tp: int, inputs=None) -> dict:
         if sk is not None:
             out["noise"] = relin_noise(ctx, got, ct1, ct2, sk)
     return out
-
-
-def relin_noise(ctx: HEContext, ct, ct1, ct2, sk) -> int:
-    """max |centered| limb-0 W-coefficient of dec(ct) - dec(ct1) dec(ct2)
-    (examples/relinearize.py's check)."""
-    xn = ctx.xntt
-
-    def ring_mul(a, b):
-        return xn.inverse(xn.forward_mul(b, xn.forward_mul(a, ctx._r2_tw)))
-
-    diff = mm.sub_mod(ctx.decrypt_to_eval(ct, sk),
-                      ring_mul(ctx.decrypt_to_eval(ct1, sk),
-                               ctx.decrypt_to_eval(ct2, sk)), ctx._q4)
-    dw0 = ctx.wt.inverse(diff)[0]
-    q0 = int(ctx.params.moduli[0])
-    return int(torch.where(dw0 > q0 // 2, dw0 - q0, dw0).abs().max())
 
 
 def rank_multihost(device, dcn: int, ici: int, n: int = 1 << 12,
@@ -310,9 +296,10 @@ def rank_bench(device, quick: bool = False) -> dict:
     mine = meshlib.block_index(x.shape, mesh, ("limb",))[0]
     local = FourStepNTT(FourStepPlan.make(n, primes[mine]), device)
     xl = x[mine].contiguous()
-    before = collections.Counter(be.LAUNCHES)
-    yl, t_shard, _ = _timed(lambda: local.forward(xl), device, BENCH_ITERS)
-    launched = collections.Counter(_launched_since(before))
+    own = Launches()
+    with own:
+        yl, t_shard, _ = _timed(lambda: local.forward(xl), device,
+                                BENCH_ITERS)
     y = meshlib.gather(yl, mesh, ("limb",))
     out = {"rank": rank, "limb_sharded_ms": t_shard}
     if rank == 0:
@@ -330,9 +317,10 @@ def rank_bench(device, quick: bool = False) -> dict:
                 "coeff_inverse_exact": res["inverse_exact"],
                 "peak": _peak(device)})
     if rank == 0:
-        out["coeff_single_plain_ms"] = res["single_plain_ms"]
-        out["coeff_equal"] = res["equal_single"]
-    out["launches"] = dict(launched + collections.Counter(res["launches"]))
+        out["coeff_single_ms"] = res["single_ms"]
+        out["coeff_equal"] = res["equal_single"] and res["equal_plain"]
+    out["launches"] = dict(collections.Counter(own.counts())
+                           + collections.Counter(res["launches"]))
     return out
 
 
@@ -452,7 +440,7 @@ def card(ranks: int, backend: str, ntt16_rate: float, ici_gbps: float,
                "t1_ms": r0["limb_single_ms"],
                f"t{ranks}_ms": max(r["limb_sharded_ms"] for r in res)},
            "coeff_sharded_ntt": {
-               "n": n, "single_plain_ms": r0["coeff_single_plain_ms"],
+               "n": n, "single_ms": r0["coeff_single_ms"],
                f"t{ranks}_fwd_ms": max(r["coeff_fwd_ms"] for r in res),
                f"t{ranks}_inv_ms": max(r["coeff_inv_ms"] for r in res)},
            "peak_per_rank": [r["peak"] for r in res],

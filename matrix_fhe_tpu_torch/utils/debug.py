@@ -13,6 +13,10 @@ Counterpart of matrix_fhe_tpu/utils/debug.py:
     JAX package composes host Python integers, which at ref would be 2.1 M
     elements x 11 limbs of big-int work; here the compose runs on 32-bit
     digit tensors and only the maximum comes back to the host.
+  * ring_mul / relin_noise: the plaintext ring product (the JAX
+    examples' mont_mul oracle: X-NTT both, multiply, inverse X-NTT) and
+    the relinearization noise of examples/relinearize.py, measured at
+    limb 0 in the W-coefficient domain.
 """
 
 from __future__ import annotations
@@ -79,3 +83,22 @@ def noise_magnitude(ctx, ct, sk, expected_eval: torch.Tensor) -> int:
     `ct` against the expected plaintext (stored layout)."""
     got = ctx.decrypt_to_eval(ct, sk)
     return composed_magnitude(ctx, mm.sub_mod(got, expected_eval, ctx._q4))
+
+
+def ring_mul(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The exact ring product of two plaintexts in the stored layout
+    (W-eval, X-coeff): iNTT_X(NTT_X(a) * NTT_X(b)), each product an X-NTT
+    fused with the other factor's transform in storage form (K10a)."""
+    xn = ctx.xntt
+    return xn.inverse(xn.forward_mul(b, xn.forward_mul(a, ctx._r2_tw)))
+
+
+def relin_noise(ctx, ct, ct1, ct2, sk) -> int:
+    """max |centered| limb-0 W-coefficient of dec(ct) - dec(ct1) dec(ct2)
+    (examples/relinearize.py's check)."""
+    diff = mm.sub_mod(ctx.decrypt_to_eval(ct, sk),
+                      ring_mul(ctx, ctx.decrypt_to_eval(ct1, sk),
+                               ctx.decrypt_to_eval(ct2, sk)), ctx._q4)
+    dw0 = ctx.wt.inverse(diff)[0]
+    q0 = int(ctx.params.moduli[0])
+    return int(torch.where(dw0 > q0 // 2, dw0 - q0, dw0).abs().max())

@@ -1,8 +1,23 @@
-"""CUDA-event timer of the port's measurement scripts and chip_smoke.py."""
+"""Timers of the port's programs, measurement scripts and chip_smoke.py:
+the host clock after a sync, and CUDA events."""
 
 from __future__ import annotations
 
+import time
+
 import torch
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the card to finish what it was given (nothing on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def clock(device: torch.device) -> float:
+    """Host seconds, after the card has finished what it was given."""
+    sync(device)
+    return time.perf_counter()
 
 
 def cuda_ms(fn, iters: int = 1, *, warmup: bool = True, chain=None) -> float:

@@ -167,7 +167,11 @@ def test_package_never_imports_jax():
             "from matrix_fhe_tpu_torch.scripts import micro_vpu, "
             "micro_coissue, ks_phases, rt_phases, bench_dist\n"
             "from matrix_fhe_tpu_torch.parallel import launch, multihost, "
-            "mesh, dist_ntt, pipeline, keyswitch\n"
+            "mesh, dist_ntt, pipeline, keyswitch, gl2\n"
+            "from matrix_fhe_tpu_torch.examples import main, matmul, "
+            "matmul_gl2, relinearize, leveled\n"
+            "from matrix_fhe_tpu_torch.scripts import bench\n"
+            "from matrix_fhe_tpu_torch import entry\n"
             "tablegen.available()\n"
             "assert golden.available()\n"
             "ctx = m.init_he_backend('tiny', device='cpu')\n"
@@ -252,15 +256,23 @@ def test_cuda_backend_raises_without_cuda():
 
 @pytest.mark.parametrize("entry", ["init_he_backend", "HEContext",
                                    "Gl2Context", "FourStepNTT",
-                                   "LeveledChain"])
+                                   "LeveledChain", "examples.main",
+                                   "examples.matmul", "examples.matmul_gl2",
+                                   "examples.relinearize", "examples.leveled",
+                                   "scripts.bench", "entry.entry",
+                                   "entry.dryrun_multichip"])
 def test_entry_points_default_to_the_card(entry):
-    """Without a device argument every public entry point runs on the
-    card, so on a host without CUDA it raises instead of running on the
-    CPU."""
+    """Without a device argument every public entry point (the examples'
+    run, the bench and the top-level entry points too) runs on the card, so
+    on a host without CUDA it raises instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
     import matrix_fhe_tpu_torch as m
+    from matrix_fhe_tpu_torch import entry as m_entry
+    from matrix_fhe_tpu_torch.examples import (leveled, main, matmul,
+                                               matmul_gl2, relinearize)
     from matrix_fhe_tpu_torch.ops import ntt_large
+    from matrix_fhe_tpu_torch.scripts import bench
 
     p = get_params("tiny")
     build = {"init_he_backend": lambda: m.init_he_backend("tiny"),
@@ -269,6 +281,15 @@ def test_entry_points_default_to_the_card(entry):
              "FourStepNTT": lambda: ntt_large.FourStepNTT(
                  ntt_large.FourStepPlan.make(64, ntt_large.generate_primes_1mod(
                      1, 35, 128))),
-             "LeveledChain": lambda: m.LeveledChain(p)}[entry]
+             "LeveledChain": lambda: m.LeveledChain(p),
+             "scripts.bench": lambda: bench.run(batch=2, iters=2),
+             "entry.entry": lambda: m_entry.entry(),
+             "entry.dryrun_multichip": lambda: m_entry.dryrun_multichip(2)}
+    build.update({f"examples.{name}": (lambda mod=mod: mod.run("tiny"))
+                  for name, mod in (("main", main), ("matmul", matmul),
+                                    ("matmul_gl2", matmul_gl2),
+                                    ("relinearize", relinearize),
+                                    ("leveled", leveled))})
+    build = build[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()

@@ -437,3 +437,85 @@ def test_k5_bench_companions_build_fast():
         w, wp = (int(v) for v in tw[k1, i2])
         assert w == int(ntt._t["tw_f"][0, k1, i2])
         assert wp == (w << 64) // q[0]
+
+
+# -- the stage route: n1 != n2 on the card ---------------------------------------
+
+STAGE_ROUTE_LOGS = (13, 15, 17)
+
+
+@pytest.mark.parametrize("lg", STAGE_ROUTE_LOGS)
+def test_stage_route_matches_plain(lg):
+    """The stage route a CUDA tensor takes where n1 != n2 (K10a's twiddle
+    form, then K1; on the CPU the stages' plain versions) gives
+    forward_plain's and inverse_plain's integers at N = 2^13, 2^15, 2^17,
+    L = 4 x 35 bits, B = 2 (chip_smoke.py holds the card to the same)."""
+    n = 1 << lg
+    moduli = tnl.generate_primes_1mod(4, 35, 2 * n)
+    ntt = tnl.FourStepNTT(tnl.FourStepPlan.make(n, moduli), "cpu")
+    assert ntt.plan.n1 != ntt.plan.n2
+    x = _i64(_residues(moduli, (2, n), seed=lg))
+    spec = ntt.forward_stages(x)
+    assert torch.equal(spec, ntt.forward_plain(x))
+    back = ntt.inverse_stages(spec)
+    assert torch.equal(back, ntt.inverse_plain(spec))
+    assert torch.equal(back, x)
+
+
+@pytest.mark.parametrize("nega", [True, False])
+def test_stage_route_matches_jax(nega):
+    """The stage route at N = 2^13 (64 x 128) against the JAX
+    FourStepNTT, which computes every power-of-two N on the device."""
+    n = 1 << 13
+    moduli = tnl.generate_primes_1mod(2, 35, 2 * n)
+    jntt = jnl.FourStepNTT(jnl.FourStepPlan.make(n, moduli, negacyclic=nega))
+    ntt = tnl.FourStepNTT(tnl.FourStepPlan.make(n, moduli, negacyclic=nega),
+                          "cpu")
+    x = _residues(moduli, (2, n), seed=21)
+    want = np.asarray(jntt.forward(jnp.asarray(x)))
+    got = ntt.forward_stages(_i64(x))
+    np.testing.assert_array_equal(_u64(got), want)
+    np.testing.assert_array_equal(
+        _u64(ntt.inverse_stages(got)),
+        np.asarray(jntt.inverse(jnp.asarray(want))))
+
+
+def test_stage_route_refuses_a_foreign_block():
+    ntt = tnl.FourStepNTT(tnl.FourStepPlan.make(128, tnl.generate_primes_1mod(
+        1, 35, 256)), "cpu")
+    with pytest.raises(ValueError, match="is not"):
+        ntt.stages.forward(torch.zeros((1, 1, 16, 8), dtype=torch.int64))
+    with pytest.raises(ValueError, match="needs an exchange"):
+        tnl.FourStepStages(ntt.plan, ntt._t, "cpu", d=2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lg", STAGE_ROUTE_LOGS)
+def test_cuda_unequal_split_takes_the_stage_route(cuda, lg):
+    """On the card a plan with n1 != n2 runs K10a-tw once and K1 once
+    forward, K1 twice inverse, never K5, and equals forward_plain /
+    inverse_plain bit for bit."""
+    import collections
+
+    from matrix_fhe_tpu_torch.ops import _backend as be
+
+    n = 1 << lg
+    moduli = tnl.generate_primes_1mod(4, 35, 2 * n)
+    ntt = tnl.FourStepNTT(tnl.FourStepPlan.make(n, moduli), cuda)
+    x = _i64(_residues(moduli, (2, n), seed=lg)).to(cuda)
+    before = collections.Counter(be.LAUNCHES)
+    spec = ntt.forward(x)
+    back = ntt.inverse(spec)
+    torch.cuda.synchronize()
+    launched = collections.Counter(be.LAUNCHES) - before
+    assert dict(launched) == {"stage_tw": 1, "stage": 3}
+    assert torch.equal(spec, ntt.forward_plain(x))
+    assert torch.equal(back, ntt.inverse_plain(spec))
+    assert torch.equal(back, x)
