@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from matrix_fhe_tpu_torch/csrc/ (one nvcc per
-source, in parallel) and drives eight paths of the port through their
+source, in parallel) and drives the paths below through the port's
 public entry points, each with the launch counts set to 0 just before it
 and read just after:
 
@@ -46,6 +46,15 @@ and read just after:
      (< 2^40), a fresh complex pair (error < 1e-4), a tiny leveled circuit
      on the card against the CPU, and the ks_phases table (K10a's twiddle
      form with K1-K4);
+ 5b. key switching at mid, the basis three examples run by default
+     (RelinContext's generated P: six 28-bit limbs, dnum 1): the
+     relinearization key, two messages and their encryptions made on the
+     CPU from one seeded generator and moved across; multiply_relinearize
+     on the card (counted: K10a's twiddle form, K1) equal to the CPU plain
+     path bit for bit, noise < 2^25, the card's and the CPU's times; K1
+     and K10a's twiddle form at mid's QP shapes (the first rows with
+     28-bit, 4-digit limbs); native/tablegen's root searches against the
+     Python ones at every Q and P limb of tiny, small, mid and ref;
   6. the probes: python3 -m matrix_fhe_tpu_torch.scripts.micro_vpu (K11)
      and micro_coissue (K12) at their default shapes, then every variant
      and mode against its plain version at those shapes and on a reduced
@@ -109,7 +118,9 @@ conjugation of path 4 as "4_gl2_conj"); K10a's twiddle-form rows carry only
 the path that runs their shape (path 5 at 64 points, the conjugation at
 128, path 7's dist NTT at 256, path 8's stage route "8_four_step" at 256
 on [4, 1024, 256]); path 8's entry points count as "8_entry_points", the
-sum of the {"launches": ...} lines of its processes.  The SASS check fails if
+sum of the {"launches": ...} lines of its processes (for mid's rows, of
+the relinearize and leveled processes, which switch keys at mid, beside
+"5b_mid_keyswitch").  The SASS check fails if
 a kernel whose products run on the tensor cores (K1, K2, K4, K6, K7, and
 K12's mxu, both and dep instantiations) has no wgmma instruction.
 Fails (nonzero exit, no result line) without a CUDA device, on a build or
@@ -1040,6 +1051,170 @@ def leveled_path():
     return rows, summary, launches, off_path
 
 
+# -- path 5b: mid's key switch, card == CPU ------------------------------------
+
+MID_SEED = 16                   # the CPU generator of the mid keys and messages
+ROOT_PRESETS = ("tiny", "small", "mid", "ref")
+
+
+def root_search_check() -> dict:
+    """native/tablegen's find_eta and find_psi4n (the port's tablegen.cpp,
+    built with g++ on this host) == the Python searches of ops/modmath at
+    every Q limb and every limb of the key-switch P basis (ref's preset P,
+    the generated P of the others)."""
+    from matrix_fhe_tpu_torch.config import get_params
+    from matrix_fhe_tpu_torch.models.keyswitch import _default_p_moduli
+    from matrix_fhe_tpu_torch.native import tablegen
+    from matrix_fhe_tpu_torch.ops import modmath as mm
+
+    t0 = time.perf_counter()
+    count = 0
+    for preset in ROOT_PRESETS:
+        p = get_params(preset)
+        f1, f2 = p.p_factors
+        for q in tuple(p.moduli) + _default_p_moduli(p):
+            q = int(q)
+            if (tablegen.find_eta(q, p.p, f1, f2) != mm.find_eta(q, p.p, f1, f2)
+                    or tablegen.find_psi4n(q, p.n) != mm.find_psi_4n(q, p.n)):
+                raise AssertionError(f"native root search differs at {preset} "
+                                     f"q = {q}")
+            count += 1
+    wall = time.perf_counter() - t0
+    log(f"[check] native root searches == Python: find_eta and find_psi4n "
+        f"at {count} Q and P limbs of {', '.join(ROOT_PRESETS)} "
+        f"({wall:.2f} s)")
+    return {"root_search_limbs": count}
+
+
+def mid_keyswitch_path():
+    """mid's key switch, the configuration three examples run by default:
+    RelinContext's generated P (six 28-bit limbs, dnum 1, one group of the
+    four Q limbs).  The relinearization key (generator seeded MID_SEED, on
+    the CPU), the two messages (the same generator) and the parity-stream
+    encryptions are made on the CPU and moved across; multiply_relinearize
+    on the card (counted) must equal the CPU plain path's bit for bit, and
+    its noise stay < 2^25.  Then K1 on the QP W-CRT and the QP X-NTT and
+    K10a's twiddle form at the digit step's shape, against their plain
+    versions, and the native root searches.  Returns (rows, summary,
+    launches)."""
+    from matrix_fhe_tpu_torch.config import get_params
+    from matrix_fhe_tpu_torch.models import rng as refrng
+    from matrix_fhe_tpu_torch.models.he import (Ciphertext, HEContext,
+                                                SecretKey)
+    from matrix_fhe_tpu_torch.models.keyswitch import RelinContext, RelinKey
+    from matrix_fhe_tpu_torch.ops import _backend as be
+    from matrix_fhe_tpu_torch.utils.debug import relin_noise
+
+    p = get_params("mid")
+    W, n = p.phi, p.n
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx_c = HEContext(p, ring="nega", device="cpu")
+    rc_c = RelinContext(ctx_c)
+    ctx_g = HEContext(p, ring="nega", device="cuda")
+    rc_g = RelinContext(ctx_g)
+    setup_s = time.perf_counter() - t0
+    bits = [q.bit_length() for q in rc_g.p_moduli]
+    log(f"[mid-ks] mid: L = {len(p.moduli)}, P of {bits} bits, dnum "
+        f"{rc_g.dnum}, groups {rc_g.groups}; both contexts in {setup_s:.1f} s")
+    if not (rc_g.p_moduli == rc_c.p_moduli and bits == [28] * 6
+            and rc_g.dnum == 1):
+        raise AssertionError(f"mid's P basis is not six 28-bit limbs at dnum "
+                             f"1: {bits}, dnum {rc_g.dnum}")
+
+    # keys and ciphertexts on the CPU, from one generator
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(MID_SEED)
+    sk_c = ctx_c.generate_secret_key()
+    rlk_c = rc_c.gen_relin_key(refrng.ternary_secret(p, "cpu"), gen)
+    m1, m2 = (torch.randint(0, 1 << 30, (len(p.moduli), W, n, n),
+                            generator=gen, dtype=torch.int64)
+              for _ in range(2))
+    ct1_c, ct2_c = ctx_c.encrypt(m1, sk_c), ctx_c.encrypt(m2, sk_c)
+    keygen_s = time.perf_counter() - t0
+
+    def card(ct):
+        return Ciphertext(*(t.cuda() for t in ct))
+
+    sk_g = SecretKey(sk_c.s_mont.cuda())
+    rlk_g = RelinKey(b=tuple(t.cuda() for t in rlk_c.b),
+                     a=tuple(t.cuda() for t in rlk_c.a))
+    ct1_g, ct2_g = card(ct1_c), card(ct2_c)
+
+    torch.cuda.synchronize()
+    be.reset_launches()
+    t0 = time.perf_counter()
+    out_g = rc_g.multiply_relinearize(ct1_g, ct2_g, rlk_g)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(be.LAUNCHES)
+    card_ms = statistics.median(
+        cuda_ms(lambda: rc_g.multiply_relinearize(ct1_g, ct2_g, rlk_g),
+                warmup=False) for _ in range(3))
+    t0 = time.perf_counter()
+    out_c = rc_c.multiply_relinearize(ct1_c, ct2_c, rlk_c)
+    cpu_s = time.perf_counter() - t0
+    same = (torch.equal(out_g.b.cpu(), out_c.b)
+            and torch.equal(out_g.a.cpu(), out_c.a))
+    noise = relin_noise(ctx_g, out_g, ct1_g, ct2_g, sk_g)
+    log(f"[mid-ks] multiply_relinearize at mid: card first call "
+        f"{first_ms:.1f} ms, median of 3 {card_ms:.3f} ms (CUDA events); "
+        f"CPU plain path {cpu_s:.1f} s ({torch.get_num_threads()} threads); "
+        f"keys and ciphertexts on the CPU {keygen_s:.1f} s; noise {noise} "
+        f"(limit 2^25); launches {launches}")
+    if not same:
+        raise AssertionError("mid multiply_relinearize on the card differs "
+                             "from the CPU plain path")
+    if not noise < 1 << 25:
+        raise AssertionError(f"mid relinearization noise {noise} >= 2^25")
+    for key in ("stage", "stage_tw"):
+        if launches.get(key, 0) <= 0:
+            raise AssertionError(f"mid multiply_relinearize launched no {key}")
+    log("[check] mid multiply_relinearize (dnum 1, 6 x 28-bit P): card == "
+        "CPU plain path, bit for bit")
+    del out_g, out_c, ct1_c, ct2_c, rlk_c, m1, m2, ctx_c, rc_c
+
+    # -- K1 and K10a-tw at mid's QP shapes (4 Q limbs + six 28-bit P) --------
+    qp = rc_g.qp_moduli
+    fwd_w, fwd_x, inv_x = rc_g.wt_qp._fwd, rc_g.xntt_qp._fwd, rc_g.xntt_qp._inv
+    g = torch.Generator(device="cuda").manual_seed(MID_SEED)
+    d = random_residues(qp, (W, n * n), g)
+    rows = [check_kernel(
+        f"stage (K1, mid key-switch QP W-CRT forward, {len(qp)} limbs, "
+        f"[{len(qp)}, {W}, {n * n}])", "stage",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
+        lambda: fwd_w.kernel(d), lambda: fwd_w.plain(d), [fwd_w.table, d],
+        stage_work(fwd_w, d))]
+    d = random_residues(qp, (W * n, n), g)
+    rows.append(check_kernel(
+        f"stage (K1, mid key-switch QP X-NTT inverse, {len(qp)} limbs, "
+        f"[{len(qp)}, {W * n}, {n}])", "stage",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
+        lambda: inv_x.kernel(d), lambda: inv_x.plain(d), [inv_x.table, d],
+        stage_work(inv_x, d)))
+    tw = random_residues(qp, (W * n, n), g)
+    rows.append(check_kernel(
+        f"stage_tw (K10a, mid QP X-NTT x twiddle, {len(qp)} limbs, "
+        f"[{len(qp)}, {W * n}, {n}])", "stage_tw",
+        "matrix_fhe_tpu_torch/csrc/stage.cu",
+        "matrix_fhe_tpu/ops/pallas_ntt.py:460",
+        lambda: fwd_x.kernel(d, tw), lambda: fwd_x.plain(d, tw),
+        [fwd_x.table, d, tw], stage_work(fwd_x, d)))
+    del d, tw, fwd_w, fwd_x, inv_x, rc_g, ctx_g
+    torch.cuda.empty_cache()
+
+    summary = {"mid_multiply_relinearize_ms": card_ms,
+               "mid_multiply_relinearize_first_ms": first_ms,
+               "mid_multiply_relinearize_cpu_s": cpu_s,
+               "mid_keys_cpu_s": keygen_s, "mid_relin_noise": noise,
+               "mid_setup_s": setup_s}
+    summary.update(root_search_check())
+    return rows, summary, launches
+
+
 def probe_path():
     """The probe entry points at their default shapes, counted; then every
     K11 variant and K12 mode against its plain version at those shapes and
@@ -1538,6 +1713,7 @@ def entry_points_path(gen):
     for label, args, pass_line, needs in ENTRY_POINTS:
         res = entry_point(label, args, pass_line, needs)
         summary[f"entry_{label}_wall_s"] = res["wall_s"]
+        summary[f"entry_{label}_launches"] = res["launches"]
         for k, v in res["launches"].items():
             launches[k] = launches.get(k, 0) + v
         if "json" in res:
@@ -2053,6 +2229,16 @@ def main() -> int:
     summary.update(ks_summary)
     walls["5_keyswitch"] = time.perf_counter() - t_path
 
+    # -- path 5b: mid's key switch (dnum 1, 28-bit P), card == CPU -----------
+    t_path = time.perf_counter()
+    mid_rows, mid_summary, mid_launches = mid_keyswitch_path()
+    for row in mid_rows:
+        row["launch_key"] = row.pop("key")
+        row["launches"] = mid_launches.get(row["launch_key"], 0)
+    rows += mid_rows
+    summary.update(mid_summary)
+    walls["5b_mid_keyswitch"] = time.perf_counter() - t_path
+
     # -- the probes (K11, K12) ---------------------------------------------
     t_path = time.perf_counter()
     probe_rows, probe_summary = probe_path()
@@ -2096,6 +2282,18 @@ def main() -> int:
             if row["name"].startswith(prefix):
                 row["launches_by_path"] = {
                     path: counts[path] for path in row.pop("paths", counts)}
+    # mid's rows: the mid phase, and of path 8 the two programs that switch
+    # keys at mid (relinearize, leveled)
+    mid_ep = {}
+    for label in ("relinearize", "leveled"):
+        for k, v in ep_summary[f"entry_{label}_launches"].items():
+            mid_ep[k] = mid_ep.get(k, 0) + v
+    for row in mid_rows:
+        key = row.pop("launch_key")
+        row["launches_by_path"] = {"5b_mid_keyswitch": mid_launches.get(key, 0),
+                                   "8_entry_points": mid_ep.get(key, 0)}
+    log(f"[launches] mid rows: 5b_mid_keyswitch {mid_launches}; "
+        f"8_entry_points (relinearize + leveled) {mid_ep}")
     log(f"[bound] IMAD peak {IMAD_PER_S:.4e} /s (64 a clock on each of 132 "
         f"SMs at 1.98 GHz); K11 addmul measured "
         f"{probe_summary['k11_addmul_steps_per_s']:.4e} steps/s")

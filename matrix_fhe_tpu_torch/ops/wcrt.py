@@ -136,6 +136,13 @@ class WTransform:
                                im.reshape(W, -1).to(torch.float64))
         return yr.reshape(re.shape), yi.reshape(re.shape)
 
+    def dft_inverse_words(self, re: torch.Tensor, im: torch.Tensor):
+        """W-IDFT of an f64 pair [W, ...] eval as fixed-point words [W, M]
+        (dft_inverse_pair before its reconstruction to f64)."""
+        W = re.shape[0]
+        return self._fp_idft.call_words(re.reshape(W, -1).to(torch.float64),
+                                        im.reshape(W, -1).to(torch.float64))
+
     def dft_forward_words(self, re: torch.Tensor, im: torch.Tensor):
         """W-DFT of an f64 pair [W, ...] as fixed-point words [W, M]."""
         W = re.shape[0]

@@ -28,6 +28,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU; skips on a host without one")
+    config.addinivalue_line(
+        "markers", "slow: minutes on the CPU; left out of tier-1 (-m 'not slow')")
 
 
 @pytest.fixture(scope="session")

@@ -7,6 +7,13 @@ key-switch correction and rescaled or rotated ciphertext must match the
 JAX package bit for bit (the tolerance is 0: residues are exact).  The
 port's own keys come from a torch.Generator and are held to the noise
 bounds of tests/test_keyswitch.py.
+
+At mid, the preset three examples run by default, RelinContext makes its
+own P (six 28-bit limbs, dnum 1, one gadget group of all four Q limbs):
+its constants, both base conversions (on random residues and on values at
+the half-integer edge of the f64 quotient) and ModDown are held to JAX's on
+narrow slices; the full mid multiply_relinearize is marked `slow`
+(pytest -m slow tests/test_torch_keyswitch.py).
 """
 
 import dataclasses
@@ -120,19 +127,31 @@ def test_encrypt_leaves_its_arguments():
 
 # -- RelinContext -----------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _relin_pair(preset: str, p_moduli):
+    """Both packages' RelinContext over one preset's "nega" context, with
+    p_moduli None, "auto" or "explicit" (_explicit_p)."""
+    jp, tp = jax_params(preset), get_params(preset)
+    arg = _explicit_p(jp) if p_moduli == "explicit" else p_moduli
+    return (jks.RelinContext(JaxContext(jp, ring="nega"), p_moduli=arg),
+            tks.RelinContext(HEContext(tp, ring="nega", device="cpu"),
+                             p_moduli=arg))
+
+
 @pytest.mark.parametrize("preset,p_moduli", [("tiny", None), ("tiny", "auto"),
                                              ("tiny", "explicit"),
-                                             ("small", "explicit")])
+                                             ("small", "explicit"),
+                                             ("mid", None), ("mid", "auto")])
 def test_relin_context_constants_match_jax(preset, p_moduli):
     """RelinContext(ctx, p_moduli=None | "auto" | primes): the P basis,
     groups, dnum, gadget constants and P^-1 as keyswitch.py:148-155 makes
     them (at ref, _default_p_moduli is compared in
-    test_torch_gl2_relin.py)."""
-    jp, tp = jax_params(preset), get_params(preset)
-    arg = _explicit_p(jp) if p_moduli == "explicit" else p_moduli
-    jrc = jks.RelinContext(JaxContext(jp, ring="nega"), p_moduli=arg)
-    rc = tks.RelinContext(HEContext(tp, ring="nega", device="cpu"),
-                          p_moduli=arg)
+    test_torch_gl2_relin.py).  mid pins no P, so None and "auto" both run
+    the search: six 28-bit limbs and one group of all four Q limbs."""
+    jrc, rc = _relin_pair(preset, p_moduli)
+    if preset == "mid":
+        assert [q.bit_length() for q in rc.p_moduli] == [28] * 6
+        assert rc.groups == [(0, 1, 2, 3)] and rc.dnum == 1
     assert rc.p_moduli == jrc.p_moduli and rc.groups == jrc.groups
     assert rc.dnum == jrc.dnum and rc.big_p == jrc.big_p
     assert rc.qp_moduli == jrc.qp_moduli
@@ -141,6 +160,97 @@ def test_relin_context_constants_match_jax(preset, p_moduli):
     pinv = tmm.mul_mod(rc._pinv, tmm.moduli_col(
         [(1 << 64) % q for q in rc.q_moduli], 3, "cpu"), rc._q)
     _eq(pinv.reshape(-1), jrc._pinv_mont)
+
+
+# -- mid's base conversions and ModDown, on narrow slices ---------------------------------
+
+def _residues(moduli, shape, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, int(q), size=shape, dtype=np.uint64)
+                     for q in moduli])
+
+
+EDGE = 2048
+
+
+def _edge_residues(moduli):
+    """Residues of M // 2 + d, M // 3 + d, M // 4 + d, d and M - 1 - d
+    (mod M) for |d| <= EDGE, M = prod(moduli): the f64 quotient
+    sum_l r'_l / q_l = K + x / M sits at a half-integer near M / 2, so its
+    rounding decides the representative there. [Ls, 5, 2 EDGE + 1]."""
+    big_m = tks._prod(int(q) for q in moduli)
+    ds = range(-EDGE, EDGE + 1)
+    vals = [[(c + d) % big_m for d in ds]
+            for c in (big_m // 2, big_m // 3, big_m // 4, 0)]
+    vals.append([(big_m - 1 - d) % big_m for d in ds])
+    return np.array([[[v % int(q) for v in row] for row in vals]
+                     for q in moduli], dtype=np.uint64)
+
+
+@pytest.mark.parametrize("inputs", ["random", "edge"])
+@pytest.mark.parametrize("which", ["keyswitch", "moddown"])
+def test_mid_basis_extender_matches_jax(which, inputs):
+    """mid's two base conversions, the digit's 4 Q -> QP (its 6 P limbs)
+    and ModDown's 6 P -> 4 Q: scaled_residues (r' and the f64 quotient k),
+    extend, and extend / extend_from in dst_slice chunks of two limbs, bit
+    for bit with JAX's, on random residues [Ls, 8, 64, 64] (one W block of
+    the [L, 512, 64, 64] ciphertext: both sides are elementwise over the
+    trailing axes) and on the half-integer edge of k for M = Q and M = P."""
+    jrc, rc = _relin_pair("mid", None)
+    if which == "keyswitch":
+        jext, ext = jrc._extenders[0], rc._extenders[0]
+        assert ext.src == rc.q_moduli and ext.dst == rc.qp_moduli
+    else:
+        jext, ext = jrc._moddown, rc._moddown
+        assert ext.src == rc.p_moduli and ext.dst == rc.q_moduli
+    x = (_residues(ext.src, (8, 64, 64), 21) if inputs == "random"
+         else _edge_residues(ext.src))
+    jrp, jk = jext.scaled_residues(jnp.asarray(x))
+    rp, k = ext.scaled_residues(convert.residues(x))
+    _eq(rp, jrp)
+    np.testing.assert_array_equal(k.numpy(), np.asarray(jk).astype(np.int64))
+    assert len(np.unique(k.numpy())) > 1
+    full = ext.extend(convert.residues(x))
+    _eq(full, jext.extend(jnp.asarray(x)))
+    for lo in range(0, len(ext.dst), 2):
+        hi = min(lo + 2, len(ext.dst))
+        chunk = ext.extend_from(rp, k, dst_slice=(lo, hi))
+        _eq(chunk, jext.extend_from(jrp, jk, dst_slice=(lo, hi)))
+        _eq(ext.extend(convert.residues(x), dst_slice=(lo, hi)),
+            jext.extend(jnp.asarray(x), dst_slice=(lo, hi)))
+        assert torch.equal(chunk, full[lo:hi])
+
+
+@pytest.mark.parametrize("which", ["keyswitch", "moddown"])
+def test_mid_edge_values_extend_to_a_bounded_representative(which):
+    """Each edge value x extends to x or x - M, the two representatives
+    |x~| <= M allows, on every target limb at once; in the M // 2 window,
+    where the f64 sum is K + 1/2 to the last bit, both occur (the rounding
+    goes by K's parity), so the window does exercise the tie."""
+    _, rc = _relin_pair("mid", None)
+    ext = rc._extenders[0] if which == "keyswitch" else rc._moddown
+    got = ext.extend(convert.residues(_edge_residues(ext.src))).numpy()
+    got = got.view(np.uint64).reshape(len(ext.dst), -1)
+    big_m = tks._prod(ext.src)
+    ds = range(-EDGE, EDGE + 1)
+    vals = [(c + d) % big_m for c in (big_m // 2, big_m // 3, big_m // 4, 0)
+            for d in ds] + [(big_m - 1 - d) % big_m for d in ds]
+    shifted = []
+    for i, v in enumerate(vals):
+        col = [int(r) for r in got[:, i]]
+        low = [v % q for q in ext.dst]
+        high = [(v - big_m) % q for q in ext.dst]
+        assert col in (low, high), (i, v)
+        shifted.append(col == high and col != low)
+    assert 0 < sum(shifted[:len(ds)]) < len(ds)
+
+
+def test_mid_mod_down_matches_jax():
+    """RelinContext._mod_down at mid (6 P limbs down to 4 Q) on a narrow
+    [Lqp, 8, 64, 64] slice, bit for bit with JAX's."""
+    jrc, rc = _relin_pair("mid", None)
+    y = _residues(rc.qp_moduli, (8, 64, 64), 22)
+    _eq(rc._mod_down(convert.residues(y)), jrc._mod_down(jnp.asarray(y)))
 
 
 def test_relin_context_rejects_a_bad_basis_name():
@@ -180,6 +290,17 @@ def test_multiply_relinearize_matches_jax_fused_and_streamed(preset,
     assert all(torch.equal(t, b) for t, b in
                zip((t for ct in s.cts for t in ct), before))
     _ct_eq(s.rc.multiply_relinearize_streamed(*s.cts, s.rlk), fused)
+
+
+@pytest.mark.slow
+def test_mid_multiply_relinearize_matches_jax():
+    """The full mid multiply_relinearize (dnum 1, six 28-bit P limbs) on a
+    converted JAX key against JAX's fused result, bit for bit (several
+    minutes on one CPU worker: pytest -m slow)."""
+    s = _setup("mid")
+    assert s.rc.dnum == 1 and len(s.rc.p_moduli) == 6
+    _ct_eq(s.rc.multiply_relinearize(*s.cts, s.rlk),
+           s.jrc.multiply_relinearize(*s.jcts, s.jrlk))
 
 
 def test_multiply_relinearize_pair_matches_jax():

@@ -5,16 +5,20 @@ RNG streams and exact CRT compose, mirroring the golden cases of
 tests/test_native.py (the JAX package's oracle against the JAX package):
 schoolbook polymul against the X-NTT product on every ring, the W-CRT
 matvec, the reference RNG streams, the centered compose and the Box-Muller
-noise, all bit for bit.
+noise, all bit for bit.  The native root searches of native/tablegen
+(find_eta, find_psi4n) are held to the port's Python searches and to the
+JAX package's binding at every Q and P limb of tiny, small, mid and ref.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from matrix_fhe_tpu.native import tablegen as jax_tablegen
 from matrix_fhe_tpu_torch.config import get_params
 from matrix_fhe_tpu_torch.models import rng as refrng
-from matrix_fhe_tpu_torch.native import golden
+from matrix_fhe_tpu_torch.models.keyswitch import _default_p_moduli
+from matrix_fhe_tpu_torch.native import golden, tablegen
 from matrix_fhe_tpu_torch.ops import modmath as mm
 from matrix_fhe_tpu_torch.ops.crt import CRTComposer
 from matrix_fhe_tpu_torch.ops.ntt import XNTT
@@ -115,3 +119,58 @@ def test_golden_gaussian_noise_bit_exact(preset):
     want = _u64(refrng.gaussian_noise(p, "cpu"))
     got = golden.gaussian_noise(p.num_limbs, p.phi, p.n, p.sigma, p.moduli)
     np.testing.assert_array_equal(want, got)
+
+
+# -- native/tablegen's root searches ---------------------------------------------
+
+def _need_tablegen():
+    if not tablegen.available():
+        pytest.skip("no native toolchain")
+
+
+@pytest.mark.parametrize("limbs", ["Q", "P"])
+@pytest.mark.parametrize("preset", ["tiny", "small", "mid", "ref"])
+def test_native_root_searches(preset, limbs):
+    """find_eta / find_psi4n == the Python searches (ops/modmath) == the
+    JAX package's binding, at every Q limb and every limb of the key-switch
+    P basis (ref's preset P, the generated P of the others)."""
+    _need_tablegen()
+    p = get_params(preset)
+    f1, f2 = p.p_factors
+    moduli = p.moduli if limbs == "Q" else _default_p_moduli(p)
+    assert jax_tablegen.available()
+    for q in moduli:
+        eta = tablegen.find_eta(q, p.p, f1, f2)
+        psi = tablegen.find_psi4n(q, p.n)
+        assert eta == mm.find_eta(q, p.p, f1, f2), q
+        assert psi == mm.find_psi_4n(q, p.n), q
+        assert eta == jax_tablegen.find_eta(q, p.p, f1, f2), q
+        assert psi == jax_tablegen.find_psi4n(q, p.n), q
+
+
+def test_native_root_searches_raise_where_none_exists():
+    """(q - 1) mod 4n != 0: the C++ returns 0 and the binding raises, as the
+    Python search does; a q with no order-p root raises from find_eta."""
+    _need_tablegen()
+    p = get_params("small")
+    q = p.moduli[0]
+    n = 1 << 20                                   # 4n does not divide q - 1
+    assert (q - 1) % (4 * n) != 0
+    with pytest.raises(ValueError, match="native find_psi4n failed"):
+        tablegen.find_psi4n(q, n)
+    with pytest.raises(ValueError):
+        mm.find_psi_4n(q, n)
+    with pytest.raises(ValueError, match="native find_eta failed"):
+        tablegen.find_eta(7, p.p, *p.p_factors)   # 51 does not divide 6
+
+
+def test_native_root_searches_raise_without_the_library(monkeypatch):
+    """Where the library cannot be built, the bindings raise: they never
+    fall back to the Python search."""
+    monkeypatch.setattr(tablegen, "_lib", lambda: None)
+    assert not tablegen.available()
+    p = get_params("tiny")
+    with pytest.raises(RuntimeError, match="could not be built"):
+        tablegen.find_eta(p.moduli[0], p.p, *p.p_factors)
+    with pytest.raises(RuntimeError, match="could not be built"):
+        tablegen.find_psi4n(p.moduli[0], p.n)

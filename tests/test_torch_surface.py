@@ -163,6 +163,29 @@ def test_inverse_scaled_matches_jax(preset):
                                   np.asarray(jwt.inverse_scaled(jnp.asarray(x))))
 
 
+@pytest.mark.parametrize("direction", ["inverse", "forward"])
+def test_dft_words_match_jax(monkeypatch, direction):
+    """dft_inverse_words / dft_forward_words: the W-(I)DFT of an f64 pair
+    as fixed-point words, (m0, m1, m2, sg) re and im and e_scale, bit for
+    bit with JAX's fixed-point route (MFHE_FP_TRANSFORMS=1, exact exp2)."""
+    monkeypatch.setenv("MFHE_FP_TRANSFORMS", "1")
+    _exact_exp2(monkeypatch)
+    p = get_params("tiny")
+    wt = WTransform(p, device="cpu")
+    jwt = JaxW(jax_params("tiny"), use_pallas=False, fast_float=True)
+    assert jwt.dft_words_available(p.n * p.n)
+    rng = np.random.default_rng(6)
+    re, im = (rng.uniform(-3, 3, (p.phi, p.n, p.n)) for _ in range(2))
+    name = f"dft_{direction}_words"
+    got = getattr(wt, name)(torch.from_numpy(re), torch.from_numpy(im))
+    want = getattr(jwt, name)(jnp.asarray(re), jnp.asarray(im))
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        np.testing.assert_array_equal(g.numpy(),
+                                      np.asarray(w).astype(np.int64))
+    assert int(got[2]) == int(want[2])
+    assert int(got[0][3].sum()) not in (0, got[0][3].numel())   # both signs
+
+
 # -- X-NTT ----------------------------------------------------------------------------
 
 @pytest.mark.parametrize("ring", ["nega", "gl", "gl2"])
