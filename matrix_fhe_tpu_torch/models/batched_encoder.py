@@ -27,6 +27,7 @@ import torch
 from ..config import GLParams
 from ..ops.wcrt import WTransform
 from ..tables import GLTables, build_tables
+from ..utils.profiler import span
 from .encoder import Encoder
 
 
@@ -48,14 +49,21 @@ class BatchedEncoder:
         fixed-point exponents are maxima over the whole message); the
         W-CRT forward after it takes each row alone."""
         if not self.encoder.words_route:
-            xr, xi = self.encoder.idft2_exact(m_re, m_im)
-            return self.encoder.quantize(*self.wt.dft_inverse_pair(xr, xi))
+            with span("encode.sandwich"):
+                xr, xi = self.encoder.idft2_exact(m_re, m_im)
+            with span("encode.widft"):
+                fr, fi = self.wt.dft_inverse_pair(xr, xi)
+            with span("encode.quantize"):
+                return self.encoder.quantize(fr, fi)
         W = m_re.shape[0]
-        wr, wi, e = self.encoder.idft2_words(m_re, m_im)
+        with span("encode.sandwich"):
+            wr, wi, e = self.encoder.idft2_words(m_re, m_im)
         flat_r = tuple(w.reshape(W, -1) for w in wr)
         flat_i = tuple(w.reshape(W, -1) for w in wi)
-        wr2, wi2, e2 = self.wt.dft_inverse_words_w(flat_r, flat_i, e)
-        rr, ri = self.encoder.quantize_words(wr2, wi2, e2)
+        with span("encode.widft"):
+            wr2, wi2, e2 = self.wt.dft_inverse_words_w(flat_r, flat_i, e)
+        with span("encode.quantize"):
+            rr, ri = self.encoder.quantize_words(wr2, wi2, e2)
         shape = (rr.shape[0],) + tuple(m_re.shape)
         return rr.reshape(shape), ri.reshape(shape)
 
@@ -63,8 +71,10 @@ class BatchedEncoder:
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[W, n, n] f64 pair -> ([L, W, n, n], [L, W, n, n]) int64:
         encode_to_wcoeff, then the W-CRT forward (K1)."""
-        rr, ri = self.encode_to_wcoeff(m_re, m_im)
-        return self.wt.forward(rr), self.wt.forward(ri)
+        with span("encode"):
+            rr, ri = self.encode_to_wcoeff(m_re, m_im)
+            with span("encode.wcrt"):
+                return self.wt.forward(rr), self.wt.forward(ri)
 
     def decode_from_wntt_eval(self, ev_re: torch.Tensor, ev_im: torch.Tensor,
                               delta_override: float | None = None
@@ -72,19 +82,28 @@ class BatchedEncoder:
         """Inverse of encode_to_wntt_eval: [L, W, n, n] int64 pair ->
         [W, n, n] f64 pair, divided by delta_override instead of Delta when
         one is given."""
-        if delta_override is not None:
-            fr, fi = self.encoder.dequantize_exact_delta(
-                self.wt.inverse(ev_re), self.wt.inverse(ev_im), delta_override)
-            return self.encoder.dft2_exact(*self.wt.dft_forward_pair(fr, fi))
-        return self.decode_composed(self.compose_pair(ev_re, ev_im))
+        with span("decode"):
+            if delta_override is None:
+                return self.decode_composed(self.compose_pair(ev_re, ev_im))
+            with span("decode.wcrt_inverse"):
+                wr, wi = self.wt.inverse(ev_re), self.wt.inverse(ev_im)
+            with span("decode.compose_exact"):
+                fr, fi = self.encoder.dequantize_exact_delta(wr, wi,
+                                                             delta_override)
+            del wr, wi
+            with span("decode.wdft"):
+                xr, xi = self.wt.dft_forward_pair(fr, fi)
+            with span("decode.sandwich"):
+                return self.encoder.dft2_exact(xr, xi)
 
     def compose_pair(self, ev_re: torch.Tensor, ev_im: torch.Tensor
                      ) -> torch.Tensor:
         """The decode's first step, K3: [L, W, ...] int64 pair -> the
         centered CRT compose / Delta, f64 [W, 2, ...] (re, im), element by
         element of the trailing axes."""
-        both = torch.stack([ev_re, ev_im], dim=2)
-        return self.wt.inverse_scaled_compose(both, self.params.delta)
+        with span("decode.compose"):
+            both = torch.stack([ev_re, ev_im], dim=2)
+            return self.wt.inverse_scaled_compose(both, self.params.delta)
 
     def decode_composed(self, f2: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -92,10 +111,12 @@ class BatchedEncoder:
         [W, 2, n, n] -> [W, n, n] f64 pair.  It depends on every matrix row
         y, as the encode's first steps do."""
         fr, fi = f2[:, 0], f2[:, 1]
-        wr, wi, e = self.wt.dft_forward_words(fr, fi)
+        with span("decode.wdft"):
+            wr, wi, e = self.wt.dft_forward_words(fr, fi)
         wr = tuple(w.reshape(fr.shape) for w in wr)
         wi = tuple(w.reshape(fr.shape) for w in wi)
-        return self.encoder.dft2_words_in(wr, wi, e)
+        with span("decode.sandwich"):
+            return self.encoder.dft2_words_in(wr, wi, e)
 
     def unpack_eval(self, ev_re: torch.Tensor, ev_im: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -32,6 +32,7 @@ from ..ops._backend import resolve_device
 from ..ops.ntt import RING_NEGACYCLIC, XNTT
 from ..ops.wcrt import WTransform
 from ..tables import build_tables
+from ..utils.profiler import span
 from . import rng as refrng
 from .batched_encoder import BatchedEncoder
 
@@ -108,19 +109,22 @@ class HEContext:
         """Encrypt a packed complex pair sharing one `a` (HE.cuh:91-92).
         Without a generator both halves carry the reference's one
         deterministic noise stream (HE.cu:1516-1517)."""
-        if generator is None:
-            a_eval = self._parity_a_eval
-            noises = (None, None) if self.zero_noise else \
-                (self._parity_e_eval,) * 2
-        else:
-            p, dev = self.params, self.device
-            a_eval = self.wt.forward(refrng.fresh_uniform_a(generator, p, dev))
-            noises = (None, None) if self.zero_noise else tuple(
-                self.wt.forward(refrng.fresh_gaussian_noise(generator, p, dev))
-                for _ in range(2))
-        t = self.xntt.mul_s(a_eval, sk.s_mont)
-        return tuple(Ciphertext(b=self._combine(m, t, e), a=a_eval)
-                     for m, e in zip((m_re, m_im), noises))
+        with span("encrypt"):
+            if generator is None:
+                a_eval = self._parity_a_eval
+                noises = (None, None) if self.zero_noise else \
+                    (self._parity_e_eval,) * 2
+            else:
+                p, dev = self.params, self.device
+                a_eval = self.wt.forward(
+                    refrng.fresh_uniform_a(generator, p, dev))
+                noises = (None, None) if self.zero_noise else tuple(
+                    self.wt.forward(
+                        refrng.fresh_gaussian_noise(generator, p, dev))
+                    for _ in range(2))
+            t = self.xntt.mul_s(a_eval, sk.s_mont)
+            return tuple(Ciphertext(b=self._combine(m, t, e), a=a_eval)
+                         for m, e in zip((m_re, m_im), noises))
 
     def encrypt(self, m: torch.Tensor, sk: SecretKey) -> Ciphertext:
         """Single-message encrypt (HE.cu:1370-1453) on the parity streams,
@@ -138,9 +142,10 @@ class HEContext:
                              sk: SecretKey) -> Tuple[torch.Tensor, torch.Tensor]:
         """b + a*s in W-eval / X-coeff domain for a pair sharing one `a`
         (a*s computed once)."""
-        t = self.xntt.mul_s(ct_re.a, sk.s_mont)
-        return (mm.add_mod(ct_re.b, t, self._q4),
-                mm.add_mod(ct_im.b, t, self._q4))
+        with span("decrypt"):
+            t = self.xntt.mul_s(ct_re.a, sk.s_mont)
+            return (mm.add_mod(ct_re.b, t, self._q4),
+                    mm.add_mod(ct_im.b, t, self._q4))
 
     def decrypt_and_decode(self, ct_re: Ciphertext, ct_im: Ciphertext,
                            sk: SecretKey) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -27,6 +27,7 @@ import torch
 from ..config import GLParams
 from ..ops import modmath as mm
 from ..ops.ntt import RING_GL
+from ..utils.profiler import span
 from . import trace as tr
 from .he import Ciphertext, HEContext, SecretKey
 
@@ -136,12 +137,15 @@ class HEMatmul:
     def matmul(self, ctX: Tuple[Ciphertext, Ciphertext],
                ctY: Tuple[Ciphertext, Ciphertext]) -> MatmulTensor:
         """Homomorphic tensor for C = Y^H @ X (per lane)."""
-        return self.tensor_fn(ctX[0], ctX[1], ctY[0], ctY[1])
+        with span("gemm.tensor"):
+            return self.tensor_fn(ctX[0], ctX[1], ctY[0], ctY[1])
 
     def decrypt_and_decode(self, tt: MatmulTensor, sk: SecretKey
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[W, n, n] complex result pair; == Y^H @ X up to quantization and
         tensor noise."""
-        cr, ci = self.decrypt_fn(tt, sk)
-        return self.ctx.batched_encoder.decode_from_wntt_eval(
-            cr, ci, delta_override=float(self.params.delta) ** 2)
+        with span("gemm.decrypt_decode"):
+            with span("gemm.decrypt"):
+                cr, ci = self.decrypt_fn(tt, sk)
+            return self.ctx.batched_encoder.decode_from_wntt_eval(
+                cr, ci, delta_override=float(self.params.delta) ** 2)

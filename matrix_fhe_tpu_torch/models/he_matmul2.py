@@ -41,6 +41,7 @@ from ..ops.cgemm import Gemm2x2
 from ..ops.ntt import XNTT
 from ..ops.wcrt import WTransform
 from ..tables import build_tables
+from ..utils.profiler import span
 from . import rng as refrng
 from .he2 import Ciphertext2, Gl2Context, SecretKey2
 from .he_matmul import conj_flip_perm
@@ -434,20 +435,23 @@ class Gl2GemmRelin:
         rc = self.rc
         _, xntt, wt, q = self._chunk_ctx(lo, hi)
         u0 = u1 = None
-        for i, (rp, k) in enumerate(src):
-            digit = rc._extenders[i].extend_from(rp, k, dst_slice=(lo, hi))
-            hat = self._ntt2d(wt.forward(digit), xntt)
-            del digit
-            tb = mm.mul_mod(hat, b_keys[i], q)
-            u0 = tb if u0 is None else mm.add_mod(u0, tb, q)
-            del tb
-            ta = mm.mul_mod(hat, a_keys[i], q)
-            u1 = ta if u1 is None else mm.add_mod(u1, ta, q)
-            del ta, hat
-        # the keys are in storage form: one 2^-64 for the sums of products
-        r_inv = mm.moduli_col(self._r_inv[lo:hi], 3, q.device)
-        return (wt.inverse(self._intt2d(mm.mul_mod(u0, r_inv, q), xntt)),
-                wt.inverse(self._intt2d(mm.mul_mod(u1, r_inv, q), xntt)))
+        with span("gl2.relin_chunk"):
+            for i, (rp, k) in enumerate(src):
+                digit = rc._extenders[i].extend_from(rp, k,
+                                                     dst_slice=(lo, hi))
+                hat = self._ntt2d(wt.forward(digit), xntt)
+                del digit
+                tb = mm.mul_mod(hat, b_keys[i], q)
+                u0 = tb if u0 is None else mm.add_mod(u0, tb, q)
+                del tb
+                ta = mm.mul_mod(hat, a_keys[i], q)
+                u1 = ta if u1 is None else mm.add_mod(u1, ta, q)
+                del ta, hat
+            # the keys are in storage form: one 2^-64 for the sums of
+            # products
+            r_inv = mm.moduli_col(self._r_inv[lo:hi], 3, q.device)
+            return (wt.inverse(self._intt2d(mm.mul_mod(u0, r_inv, q), xntt)),
+                    wt.inverse(self._intt2d(mm.mul_mod(u1, r_inv, q), xntt)))
 
     # the JAX package's limb-chunked relinearization gives its fused
     # relinearize_fn's bits: the port's one route (chunked) serves under both

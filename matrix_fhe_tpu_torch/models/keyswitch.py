@@ -42,6 +42,7 @@ from ..ops.ntt import XNTT
 from ..ops.rns_ext import BasisExtender
 from ..ops.wcrt import WTransform
 from ..tables import build_tables
+from ..utils.profiler import span
 from . import rng as refrng
 from .he import Ciphertext, HEContext
 
@@ -262,13 +263,14 @@ class RelinContext:
         transform in storage form (K10a)."""
         xn, q = self.ctx.xntt, self._q
         r2 = self.ctx._r2_tw
-        b1m = xn.forward_mul(ct1.b, r2)          # NTT(b1) * 2^64
-        a1m = xn.forward_mul(ct1.a, r2)
-        d0c = xn.inverse(xn.forward_mul(ct2.b, b1m))
-        d1c = xn.inverse(mm.add_mod(xn.forward_mul(ct2.a, b1m),
-                                    xn.forward_mul(ct2.b, a1m), q))
-        d2wc = self.ctx.wt.inverse(xn.inverse(xn.forward_mul(ct2.a, a1m)))
-        return d0c, d1c, d2wc
+        with span("ks.front"):
+            b1m = xn.forward_mul(ct1.b, r2)          # NTT(b1) * 2^64
+            a1m = xn.forward_mul(ct1.a, r2)
+            d0c = xn.inverse(xn.forward_mul(ct2.b, b1m))
+            d1c = xn.inverse(mm.add_mod(xn.forward_mul(ct2.a, b1m),
+                                        xn.forward_mul(ct2.b, a1m), q))
+            d2wc = self.ctx.wt.inverse(xn.inverse(xn.forward_mul(ct2.a, a1m)))
+            return d0c, d1c, d2wc
 
     def _digit_step(self, i: int, d_wc: torch.Tensor, key_b: torch.Tensor,
                     key_a: torch.Tensor, ksb: Optional[torch.Tensor],
@@ -277,22 +279,24 @@ class RelinContext:
         QP, W-CRT, then the X-NTT fused with each key product (K10a), summed
         into the accumulators (None starts them)."""
         g = self.groups[i]                        # groups are consecutive
-        digit = self._extenders[i].extend(d_wc[g[0]:g[-1] + 1])
-        w = self.wt_qp.forward(digit)
-        del digit
-        tb = self.xntt_qp.forward_mul(w, key_b)
-        ta = self.xntt_qp.forward_mul(w, key_a)
-        q = self._qqp
-        return (tb if ksb is None else mm.add_mod(ksb, tb, q),
-                ta if ksa is None else mm.add_mod(ksa, ta, q))
+        with span("ks.digit", i):
+            digit = self._extenders[i].extend(d_wc[g[0]:g[-1] + 1])
+            w = self.wt_qp.forward(digit)
+            del digit
+            tb = self.xntt_qp.forward_mul(w, key_b)
+            ta = self.xntt_qp.forward_mul(w, key_a)
+            q = self._qqp
+            return (tb if ksb is None else mm.add_mod(ksb, tb, q),
+                    ta if ksa is None else mm.add_mod(ksa, ta, q))
 
     def _switch_finish(self, ksb: torch.Tensor, ksa: torch.Tensor):
         """QP accumulators -> (kb, ka) over Q in (W-eval, X-coeff)."""
         out = []
-        for acc in (ksb, ksa):
-            acc_c = self.wt_qp.inverse(self.xntt_qp.inverse(acc))
-            out.append(self.ctx.wt.forward(self._mod_down(acc_c)))
-        return tuple(out)
+        with span("ks.finish"):
+            for acc in (ksb, ksa):
+                acc_c = self.wt_qp.inverse(self.xntt_qp.inverse(acc))
+                out.append(self.ctx.wt.forward(self._mod_down(acc_c)))
+            return tuple(out)
 
     def _mr_finish(self, d0c, d1c, ksb, ksa) -> Ciphertext:
         kb, ka = self._switch_finish(ksb, ksa)
@@ -314,9 +318,10 @@ class RelinContext:
     def _mod_down(self, y_qp: torch.Tensor) -> torch.Tensor:
         """round(y / P) mod Q, exact centered division by the P basis
         ((W-coeff, X-coeff) domain input [Lqp, ...])."""
-        c = self._moddown.extend(y_qp[self.L:])
-        diff = mm.sub_mod(y_qp[:self.L], c, self._q)
-        return mm.mul_mod(diff, self._pinv, self._q)
+        with span("ks.mod_down"):
+            c = self._moddown.extend(y_qp[self.L:])
+            diff = mm.sub_mod(y_qp[:self.L], c, self._q)
+            return mm.mul_mod(diff, self._pinv, self._q)
 
     # -- full homomorphic multiply --------------------------------------------
 
@@ -326,12 +331,14 @@ class RelinContext:
         Delta^2-scaled (decode with delta_override): front, one step per
         digit, finish.  The same bits as the JAX fused and streamed
         multiplies."""
-        d0c, d1c, d2wc = self._mr_front(ct1, ct2)
-        ksb = ksa = None
-        for i in range(self.dnum):
-            ksb, ksa = self._digit_step(i, d2wc, rlk.b[i], rlk.a[i], ksb, ksa)
-        del d2wc
-        return self._mr_finish(d0c, d1c, ksb, ksa)
+        with span("ks.multiply"):
+            d0c, d1c, d2wc = self._mr_front(ct1, ct2)
+            ksb = ksa = None
+            for i in range(self.dnum):
+                ksb, ksa = self._digit_step(i, d2wc, rlk.b[i], rlk.a[i],
+                                            ksb, ksa)
+            del d2wc
+            return self._mr_finish(d0c, d1c, ksb, ksa)
 
     # the JAX package's digit-streamed multiply gives its fused one's bits:
     # the port's one route serves under both names

@@ -23,6 +23,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiler import span
 from .modmath import mul_mod, sub_mod
 
 I64 = torch.int64
@@ -61,13 +62,14 @@ class BasisExtender:
     def scaled_residues(self, x: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(r'_l planes [Ls, ...], k [...] int64)."""
-        rp = mul_mod(x, self._col(self._inv, x.dim()),
-                     self._col(self._q, x.dim()))
-        kf = None
-        for l, inv_q in enumerate(self._inv_q_f64):
-            term = rp[l].to(F64) * inv_q
-            kf = term if kf is None else kf + term
-        return rp, torch.round(kf).to(I64)
+        with span("rns.scaled_residues"):
+            rp = mul_mod(x, self._col(self._inv, x.dim()),
+                         self._col(self._q, x.dim()))
+            kf = None
+            for l, inv_q in enumerate(self._inv_q_f64):
+                term = rp[l].to(F64) * inv_q
+                kf = term if kf is None else kf + term
+            return rp, torch.round(kf).to(I64)
 
     def extend(self, x: torch.Tensor,
                dst_slice: Tuple[int, int] | None = None) -> torch.Tensor:
@@ -84,12 +86,14 @@ class BasisExtender:
         lo, hi = (0, len(self.dst)) if dst_slice is None else dst_slice
         nd = rp.dim()
         rd = self._col(self._rd[lo:hi], nd)                     # [Ld, 1, ...]
-        acc = None
-        for l in range(len(self.src)):
-            # r'_l may exceed r: reduce first
-            term = mul_mod(rp[l][None] % rd,
-                           self._col(self._m_mod_r[l, lo:hi], nd), rd)
-            acc = term if acc is None else acc + term   # Ls terms < 2^63
-        acc = acc % rd
-        kq = mul_mod(k[None] % rd, self._col(self._qsrc_mod_r[lo:hi], nd), rd)
-        return sub_mod(acc, kq, rd)
+        with span("rns.extend_from"):
+            acc = None
+            for l in range(len(self.src)):
+                # r'_l may exceed r: reduce first
+                term = mul_mod(rp[l][None] % rd,
+                               self._col(self._m_mod_r[l, lo:hi], nd), rd)
+                acc = term if acc is None else acc + term   # Ls terms < 2^63
+            acc = acc % rd
+            kq = mul_mod(k[None] % rd,
+                         self._col(self._qsrc_mod_r[lo:hi], nd), rd)
+            return sub_mod(acc, kq, rd)
