@@ -45,16 +45,23 @@ and read just after:
      with the full Galois set, decrypt) against the exact ring oracle
      (< 2^40), a fresh complex pair (error < 1e-4), a tiny leveled circuit
      on the card against the CPU, and the ks_phases table (K10a's twiddle
-     form with K1-K4);
+     form with K1-K4, the base conversion base_conv); outside the counted
+     run, a multiply through the plain torch base conversion on the card
+     against the kernel route's (bit for bit, and both times); base_conv
+     against its plain version at each of ref's conversions (the four
+     digits to QP, ModDown with its division, the rescale, a dst_slice
+     chunk) and at the quotient's edge values against the CPU;
  5b. key switching at mid, the basis three examples run by default
      (RelinContext's generated P: six 28-bit limbs, dnum 1): the
      relinearization key, two messages and their encryptions made on the
      CPU from one seeded generator and moved across; multiply_relinearize
-     on the card (counted: K10a's twiddle form, K1) equal to the CPU plain
-     path bit for bit, noise < 2^25, the card's and the CPU's times; K1
-     and K10a's twiddle form at mid's QP shapes (the first rows with
-     28-bit, 4-digit limbs); native/tablegen's root searches against the
-     Python ones at every Q and P limb of tiny, small, mid and ref;
+     on the card (counted: K10a's twiddle form, K1, base_conv) equal to
+     the CPU plain path bit for bit, noise < 2^25, the card's and the
+     CPU's times; K1 and K10a's twiddle form at mid's QP shapes (the first
+     rows with 28-bit, 4-digit limbs), base_conv at mid's digit and
+     ModDown, and at their edge values; native/tablegen's root searches
+     against the Python ones at every Q and P limb of tiny, small, mid and
+     ref;
   6. the probes: python3 -m matrix_fhe_tpu_torch.scripts.micro_vpu (K11)
      and micro_coissue (K12) at their default shapes, then every variant
      and mode against its plain version at those shapes and on a reduced
@@ -105,9 +112,10 @@ could take for the same work (bytes at 3.35 TB/s; K1, K10a, K2, K3, K6
 and K7's u8 digit products, K4's s8 digit products by the JAX kernel's
 Karatsuba method and K12's s8 dots at the int8 tensor-core rate of 1,979
 TOP/s; K5's Shoup products at the IMADs a product of its register
-kernel's SASS, per word width, its index and address IMADs left out, at
-the card's IMAD rate of 64 a clock on each SM) and, where one PyTorch call
-computes the same function, that call's time (K11's copy: Tensor.copy_ on
+kernel's SASS, per word width, its index and address IMADs left out, and
+base_conv's at an estimated 10 IMADs a product, at the card's IMAD rate
+of 64 a clock on each SM) and, where one PyTorch call computes the same
+function, that call's time (K11's copy: Tensor.copy_ on
 the same buffers, in turns).  For every row a [bound] line logs the byte
 and operation bounds apart; K3's parts (split, GEMM, compose) and K4's
 split pass are timed apart on [kernel] lines, and so is K2's function as
@@ -132,6 +140,7 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -843,6 +852,98 @@ def gl2_path():
     return rows, summary, launches, conj_launches
 
 
+# IMAD-class instructions of one 64-bit Shoup product (x w and the high
+# word of x w' at 3 and 4 IMADs, the product by q at 3): the estimate of
+# the base conversion's operation bound
+SHOUP_IMADS = 10
+EDGE = 2048                     # the f64 quotient's edge: M/2, ... +-2048
+
+
+def base_conv_work(ext, n: int, ld: int, divides: bool) -> dict:
+    """Shoup products of one base_conv call: r', Ls + 1 terms and one
+    reduction a target, the division's product."""
+    ls = len(ext.src)
+    products = ls + ld * (ls + 2) + (ld if divides else 0)
+    return {"imad": SHOUP_IMADS * products * n}
+
+
+@contextlib.contextmanager
+def plain_base_conv():
+    """The plain torch base conversion on CUDA tensors as well (the
+    yardstick of the kernel: the route before csrc/base_conv.cu)."""
+    from matrix_fhe_tpu_torch.ops.rns_ext import BasisExtender
+
+    kernel = BasisExtender.kernel
+
+    BasisExtender.kernel = BasisExtender.plain
+    try:
+        yield
+    finally:
+        BasisExtender.kernel = kernel
+
+
+def edge_residues(moduli) -> torch.Tensor:
+    """x = M/2, M/3, M/4, 0, M - 1 (+-EDGE) for M = prod(moduli), as
+    residues [Ls, 5 (2 EDGE + 1)]: at M/2 the f64 quotient sits on a
+    half-integer and half-even rounding picks the representative."""
+    big_m = 1
+    for q in moduli:
+        big_m *= int(q)
+    ds = range(-EDGE, EDGE + 1)
+    vals = [(c + d) % big_m for c in (big_m // 2, big_m // 3, big_m // 4, 0)
+            for d in ds] + [(big_m - 1 - d) % big_m for d in ds]
+    return torch.tensor([[v % int(q) for v in vals] for q in moduli],
+                        dtype=torch.int64)
+
+
+def base_conv_checks(label: str, conversions, frame, gen) -> list:
+    """base_conv against its plain version on the card at each conversion
+    (name, extender, dividing) of a key switch, on [Ls, *frame] residues
+    (the ciphertext's frame) and on the edge values against the CPU's plain
+    version; the first conversion also in a dst_slice chunk of the
+    targets' first half.  Rows keyed "base_conv"."""
+    from matrix_fhe_tpu_torch.ops.rns_ext import BasisExtender
+
+    rows = []
+    n = int(np.prod(frame))
+    for i, (name, ext, divides) in enumerate(conversions):
+        ls, ld = len(ext.src), len(ext.dst)
+        x = random_residues(ext.src, frame, gen)
+        y = random_residues(ext.dst, frame, gen) if divides else None
+        rows.append(check_kernel(
+            f"base_conv ({label} {name}, {ls} -> {ld} limbs"
+            + (", with the division" if divides else "")
+            + f", [{ls}, {', '.join(map(str, frame))}])", "base_conv",
+            "matrix_fhe_tpu_torch/csrc/base_conv.cu",
+            "none: the JAX package's base conversion is plain jnp",
+            lambda: ext.kernel(x, None, y),
+            lambda: ext.plain(x, None, y), [x] + ([y] if divides else []),
+            base_conv_work(ext, n, ld, divides)))
+        if i == 0:
+            sl = (0, (ld + 1) // 2)
+            rows.append(check_kernel(
+                f"base_conv ({label} {name}, targets {sl[0]}:{sl[1]} of "
+                f"{ld}, [{ls}, {', '.join(map(str, frame))}])", "base_conv",
+                "matrix_fhe_tpu_torch/csrc/base_conv.cu",
+                "none: the JAX package's base conversion is plain jnp",
+                lambda: ext.kernel(x, sl), lambda: ext.plain(x, sl), [x],
+                base_conv_work(ext, n, sl[1] - sl[0], False)))
+        edge = edge_residues(ext.src)
+        ye = (torch.from_numpy(np.stack([np.arange(edge.shape[1]) % int(r)
+                                         for r in ext.dst]))
+              if divides else None)
+        got = ext.extend(edge.cuda(), None, None if ye is None else ye.cuda())
+        want = BasisExtender(ext.src, ext.dst, "cpu").extend(edge, None, ye)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"base_conv {label} {name} differs from the "
+                                 "CPU plain version at the edge values")
+        del x, y, got
+    log(f"[check] base_conv at {label}: {len(conversions)} conversions == "
+        f"the plain version on the card at [Ls, {n}] and == the CPU's at "
+        f"the {5 * (2 * EDGE + 1)} edge values, bit for bit")
+    return rows
+
+
 def leveled_path():
     """Key switching at ref: examples/relinearize.py and examples/leveled.py
     on the port's LeveledChain (the preset's P basis, dnum = 4), a fresh
@@ -853,7 +954,8 @@ def leveled_path():
     counted run).  Returns (rows, summary, launches)."""
     from matrix_fhe_tpu_torch import LeveledChain, convert
     from matrix_fhe_tpu_torch.config import get_params
-    from matrix_fhe_tpu_torch.models.keyswitch import w_automorphism_perm
+    from matrix_fhe_tpu_torch.models.keyswitch import (Rescaler,
+                                                       w_automorphism_perm)
     from matrix_fhe_tpu_torch.ops import _backend as be
     from matrix_fhe_tpu_torch.ops import modmath as mm
     from matrix_fhe_tpu_torch.scripts import ks_phases
@@ -886,9 +988,9 @@ def leveled_path():
     # -- examples/relinearize.py: keygen, two encrypts, multiply, noise ----
     rlk = step("relin_keygen", lambda: chain.rlk(0))
     rng = np.random.default_rng(9)
-    m1, m2 = (torch.from_numpy(np.stack(
-        [rng.integers(0, 1 << 30, size=(W, n, n)) for _ in p.moduli])).cuda()
-        for _ in range(2))
+    msgs = [np.stack([rng.integers(0, 1 << 30, size=(W, n, n))
+                      for _ in p.moduli]) for _ in range(2)]   # on the host
+    m1, m2 = (torch.from_numpy(m).cuda() for m in msgs)
     sk = chain.sk(0)
     ct1, ct2 = step("encrypt_two", lambda: (ctx.encrypt(m1, sk),
                                             ctx.encrypt(m2, sk)))
@@ -964,9 +1066,33 @@ def leveled_path():
         f"(limit 1e-4)")
     if not (np.isfinite(pair_err) and pair_err < TOL):
         raise AssertionError(f"fresh complex pair err {pair_err} >= {TOL}")
+    del re, im, pr, pi, dr, di
+    torch.cuda.empty_cache()
+
+    # -- outside the counted run: the multiply through the plain torch
+    # base conversion, against the kernel route's on the same ciphertexts --
+    ct1, ct2 = (ctx.encrypt(torch.from_numpy(m).cuda(), sk) for m in msgs)
+    ct = rc.multiply_relinearize(ct1, ct2, rlk)
+    with plain_base_conv():
+        plain_ct = rc.multiply_relinearize(ct1, ct2, rlk)
+        plain_mr_ms = cuda_ms(lambda: rc.multiply_relinearize(ct1, ct2, rlk),
+                              warmup=False)
+    if not (torch.equal(plain_ct.b, ct.b) and torch.equal(plain_ct.a, ct.a)):
+        raise AssertionError("ref multiply_relinearize through base_conv "
+                             "differs from the plain base conversion's")
+    log(f"[check] ref multiply_relinearize: the base_conv route == the plain "
+        f"torch base conversion on the card, bit for bit ({mr_ms:.3f} ms "
+        f"against {plain_mr_ms:.3f} ms)")
+    del ct, ct1, ct2, msgs, plain_ct, rlk
     qp = rc.qp_moduli
     fwd_x, fwd_w = rc.xntt_qp._fwd, rc.wt_qp._fwd     # the switch's stages
-    del chain, ctx, rc, rlk, re, im, pr, pi, dr, di
+    torch.cuda.empty_cache()
+    bc_rows = base_conv_checks(
+        "ref", [(f"digit {i}", e, False) for i, e in enumerate(rc._extenders)]
+        + [("ModDown", rc._moddown, True),
+           ("rescale", Rescaler(p.moduli, "cuda")._ext, True)],
+        (W, n, n), torch.Generator(device="cuda").manual_seed(19))
+    del chain, ctx, rc
     torch.cuda.empty_cache()
 
     # -- ks_phases at ref -----------------------------------------------------
@@ -1009,6 +1135,7 @@ def leveled_path():
         lambda: fwd_x.kernel(d, tw), lambda: fwd_x.plain(d, tw),
         [fwd_x.table, d, tw], stage_work(fwd_x, d))]
     rows[0]["paths"] = ("5_keyswitch",)
+    rows += bc_rows
     del d, tw
     d = random_residues(qp, (W, n * n), gen)
     rows.append(check_kernel(
@@ -1042,6 +1169,7 @@ def leveled_path():
 
     summary = {"ref_relin_noise": relin_noise, "ref_ks_k1_split_ms": split_ms,
                "ref_multiply_relinearize_ms": mr_ms,
+               "ref_multiply_relinearize_plain_base_conv_ms": plain_mr_ms,
                "ref_leveled_oracle": oracle, "ref_pair_err": pair_err,
                "ref_leveled_max_memory_allocated": peak,
                "ref_leveled_memory_above_held": peak - held,
@@ -1168,7 +1296,7 @@ def mid_keyswitch_path():
                              "from the CPU plain path")
     if not noise < 1 << 25:
         raise AssertionError(f"mid relinearization noise {noise} >= 2^25")
-    for key in ("stage", "stage_tw"):
+    for key in ("stage", "stage_tw", "base_conv"):
         if launches.get(key, 0) <= 0:
             raise AssertionError(f"mid multiply_relinearize launched no {key}")
     log("[check] mid multiply_relinearize (dnum 1, 6 x 28-bit P): card == "
@@ -1203,7 +1331,11 @@ def mid_keyswitch_path():
         "matrix_fhe_tpu/ops/pallas_ntt.py:460",
         lambda: fwd_x.kernel(d, tw), lambda: fwd_x.plain(d, tw),
         [fwd_x.table, d, tw], stage_work(fwd_x, d)))
-    del d, tw, fwd_w, fwd_x, inv_x, rc_g, ctx_g
+    del d, tw, fwd_w, fwd_x, inv_x
+    rows += base_conv_checks(
+        "mid", [("digit", rc_g._extenders[0], False),
+                ("ModDown", rc_g._moddown, True)], (W, n, n), g)
+    del rc_g, ctx_g
     torch.cuda.empty_cache()
 
     summary = {"mid_multiply_relinearize_ms": card_ms,
@@ -1425,7 +1557,7 @@ def parallel_rows(device, dp: int, tp: int) -> list:
 PAR_NEEDS = {"ntt": ("stage", "stage_tw"),
              "pipeline": ("stage", "ntt_mul_ntt", "inv_compose",
                           "fp_cmatmul"),
-             "keyswitch": ("stage", "stage_tw")}
+             "keyswitch": ("stage", "stage_tw", "base_conv")}
 
 
 def parallel_rank(device, dp: int, tp: int, rows: bool) -> dict:
@@ -1572,25 +1704,26 @@ ENTRY_S = 600                   # one entry point's time limit
 # of its set-up, keys, encryptions, oracles, baselines, fences or rank 0's
 # unsharded references: the launch keys of K1 stage, K10a-tw stage_tw, K2
 # ntt_mul_ntt, K3 inv_compose, K4 fp_cmatmul, K5 four_step_fwd, K6 cgemm,
-# K7 gemm2x2)
+# K7 gemm2x2, the base conversion base_conv)
 ENTRY_POINTS = (
     ("main", ["-m", "matrix_fhe_tpu_torch.examples.main"], r"SUCCESS \(",
      ("stage", "ntt_mul_ntt", "inv_compose", "fp_cmatmul")),
     ("matmul", ["-m", "matrix_fhe_tpu_torch.examples.matmul"],
      r"\[matmul\] PASS$", ("cgemm", "ntt_mul_ntt", "stage", "fp_cmatmul")),
     ("matmul_gl2", ["-m", "matrix_fhe_tpu_torch.examples.matmul_gl2"],
-     r"\[gl2-gemm\] OK$", ("gemm2x2", "ntt_mul_ntt", "stage", "fp_cmatmul")),
+     r"\[gl2-gemm\] OK$",
+     ("gemm2x2", "ntt_mul_ntt", "stage", "fp_cmatmul", "base_conv")),
     ("relinearize", ["-m", "matrix_fhe_tpu_torch.examples.relinearize"],
-     r"\[relin\] PASS$", ("stage_tw", "stage")),
+     r"\[relin\] PASS$", ("stage_tw", "stage", "base_conv")),
     ("leveled", ["-m", "matrix_fhe_tpu_torch.examples.leveled"],
      r"\[leveled\] \|ct - oracle\| composed max = \d+ \(OK\)$",
-     ("stage_tw", "stage", "ntt_mul_ntt")),
+     ("stage_tw", "stage", "ntt_mul_ntt", "base_conv")),
     ("bench", ["-m", "matrix_fhe_tpu_torch.scripts.bench"], r'^\{"metric": ',
      ("four_step_fwd", "stage", "ntt_mul_ntt", "inv_compose", "fp_cmatmul")),
     ("dryrun_multichip(4)", ["-m", "matrix_fhe_tpu_torch.entry", "--dryrun",
                              "4"], r"\[dryrun\] OK$",
      ("stage", "stage_tw", "ntt_mul_ntt", "inv_compose", "fp_cmatmul",
-      "gemm2x2")),
+      "gemm2x2", "base_conv")),
 )
 # FourStepNTT's sizes held to its plain version: n1 != n2 takes the stage
 # route (N = 2^13 is 64 x 128, 2^15 128 x 256, 2^17 256 x 512)
@@ -2275,7 +2408,8 @@ def main() -> int:
                ("5_keyswitch", ks_launches), ("7_parallel", par_launches),
                ("8_entry_points", ep_launches), ("8_four_step", fs_launches))
     for key, prefix in (("ntt_mul_ntt", "ntt_mul_ntt"), ("stage", "stage (K1"),
-                        ("stage_tw", "stage_tw (K10a")):
+                        ("stage_tw", "stage_tw (K10a"),
+                        ("base_conv", "base_conv (ref")):
         counts = {path: c.get(key, 0) for path, c in by_path}
         log(f"[launches] {key} by path: {counts}")
         for row in rows:

@@ -21,10 +21,12 @@ The port relinearizes on one route, the JAX package's limb-chunked one:
 QP limbs go through chunk-sized transform contexts, with the chunk bounds
 of the JAX byte rule (one chunk while the full [Lqp, W, 2n, 2n] plane is at
 most 1 GiB, else ~512 MiB chunks, aligned to the Q|P boundary) or
-`chunk_limbs` limbs per chunk.  It never modifies its arguments.  The key
-products, the sigma gathers, the basis extension and ModDown are plain
-torch elementwise work, as in the JAX package (none of it is a Pallas
-kernel there); the transforms run kernel K1.
+`chunk_limbs` limbs per chunk.  It never modifies its arguments.  Each
+digit's basis extension to a chunk's limbs, and each ModDown with its
+division, is one launch of csrc/base_conv.cu (ops/rns_ext.py); the JAX
+package leaves them to XLA as plain jnp.  The key products and the sigma
+gathers are plain torch elementwise work, as in the JAX package (none of
+it is a Pallas kernel there); the transforms run kernel K1.
 """
 
 from __future__ import annotations
@@ -398,10 +400,10 @@ class Gl2GemmRelin:
 
     def relinearize(self, tt: GemmTensor2, ks: GemmRelinKey) -> Ciphertext2:
         """Switch the ss(x)1 and ss(x)s components to 1(x)s and repack:
-        per component, the W-CRT inverse and the digits' source-side
-        scaled residues once, then every QP chunk: extend, 2D NTT, key
-        products summed over digits, 2D inverse NTT; then ModDown to Q.
-        The same bits as the JAX relinearize_fn for the same tt and keys."""
+        per component, the W-CRT inverse once, then every QP chunk: each
+        digit's extension to the chunk's limbs, 2D NTT, key products summed
+        over digits, 2D inverse NTT; then ModDown to Q.  The same bits as
+        the JAX relinearize_fn for the same tt and keys."""
         rc, ctx = self.rc, self.ctx
         Lqp = len(rc.qp_moduli)
         chunks = self._qp_chunks()
@@ -409,9 +411,7 @@ class Gl2GemmRelin:
         for e_hi, b_keys, a_keys in ((tt.e10, ks.b1, ks.a1),
                                      (tt.e11, ks.b2, ks.a2)):
             wc = self._wt_q.inverse(e_hi)
-            src = [rc._extenders[i].scaled_residues(wc[g[0]:g[-1] + 1])
-                   for i, g in enumerate(rc.groups)]   # groups are consecutive
-            del wc
+            src = [wc[g[0]:g[-1] + 1] for g in rc.groups]   # consecutive
             shape = (Lqp,) + tuple(e_hi.shape[1:])
             k0 = torch.empty(shape, dtype=I64, device=e_hi.device)
             k1 = torch.empty(shape, dtype=I64, device=e_hi.device)
@@ -419,6 +419,7 @@ class Gl2GemmRelin:
                 k0[lo:hi], k1[lo:hi] = self._relin_chunk(
                     lo, hi, src, [b[lo:hi] for b in b_keys],
                     [a[lo:hi] for a in a_keys])
+            del wc, src
             outs.append(self._wt_q.forward(rc._mod_down(k0)))
             del k0
             outs.append(self._wt_q.forward(rc._mod_down(k1)))
@@ -436,9 +437,8 @@ class Gl2GemmRelin:
         _, xntt, wt, q = self._chunk_ctx(lo, hi)
         u0 = u1 = None
         with span("gl2.relin_chunk"):
-            for i, (rp, k) in enumerate(src):
-                digit = rc._extenders[i].extend_from(rp, k,
-                                                     dst_slice=(lo, hi))
+            for i, x in enumerate(src):
+                digit = rc._extenders[i].extend(x, dst_slice=(lo, hi))
                 hat = self._ntt2d(wt.forward(digit), xntt)
                 del digit
                 tb = mm.mul_mod(hat, b_keys[i], q)

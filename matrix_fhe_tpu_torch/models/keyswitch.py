@@ -20,9 +20,13 @@ step per digit that accumulates into the QP accumulators, and a finish
 (ModDown).  JAX's fused and streamed multiplies give the same bits, so
 this one route matches both; it never modifies its arguments.  Each digit
 step's X-NTT and its product by a key are one launch of K10a (the stage
-kernel with the key as its twiddle).  The basis extension, ModDown and the
-other products are plain torch elementwise work, as in the JAX package
-(none of it is a Pallas kernel there).  Keys are drawn from a
+kernel with the key as its twiddle).  Each digit's basis extension is
+one launch of csrc/base_conv.cu (ops/rns_ext.py), and so is each ModDown,
+with its subtraction and product by P^-1 in the kernel's epilogue; the
+rescale's division by the last prime is the same launch with one source
+limb.  The JAX package leaves all of this to XLA as plain jnp (none of it
+is a Pallas kernel there).  The accumulators' sums and the other products
+are plain torch elementwise work.  Keys are drawn from a
 torch.Generator, so they differ from JAX keys; convert.py carries JAX keys
 across for the parity tests.
 """
@@ -185,10 +189,8 @@ class RelinContext:
         self._extenders = [
             BasisExtender([self.q_moduli[l] for l in g], self.qp_moduli, dev)
             for g in groups]
-        # ModDown: P -> Q conversion and P^-1 mod q
+        # ModDown: P -> Q conversion with the division by P (its P^-1 mod q)
         self._moddown = BasisExtender(self.p_moduli, self.q_moduli, dev)
-        self._pinv = mm.moduli_col(
-            [pow(self.big_p % q, -1, q) for q in self.q_moduli], 3, dev)
         big_q = _prod(self.q_moduli)
         gs = []
         for g in groups:
@@ -319,9 +321,8 @@ class RelinContext:
         """round(y / P) mod Q, exact centered division by the P basis
         ((W-coeff, X-coeff) domain input [Lqp, ...])."""
         with span("ks.mod_down"):
-            c = self._moddown.extend(y_qp[self.L:])
-            diff = mm.sub_mod(y_qp[:self.L], c, self._q)
-            return mm.mul_mod(diff, self._pinv, self._q)
+            return self._moddown.extend(y_qp[self.L:],
+                                        dividend=y_qp[:self.L])
 
     # -- full homomorphic multiply --------------------------------------------
 
@@ -589,16 +590,11 @@ class Rescaler:
         self.q_last = self.moduli[-1]
         self.rest = self.moduli[:-1]
         self._ext = BasisExtender([self.q_last], self.rest, device)
-        self._qinv = mm.moduli_col(
-            [pow(self.q_last % q, -1, q) for q in self.rest], 3, device)
-        self._q = mm.moduli_col(self.rest, 3, device)
 
     def rescale_component(self, y: torch.Tensor) -> torch.Tensor:
         """[L, W, y, x] in W-coeff -> [L-1, W, y, x] = round(y / q_last)
         mod the remaining chain."""
-        c = self._ext.extend(y[-1:])
-        diff = mm.sub_mod(y[:-1], c, self._q)
-        return mm.mul_mod(diff, self._qinv, self._q)
+        return self._ext.extend(y[-1:], dividend=y[:-1])
 
 
 _RESCALE_PARTS: "weakref.WeakKeyDictionary[HEContext, tuple]" = \

@@ -84,8 +84,9 @@ def test_relin_context_constants_match_jax(relin_ctx):
     for g, w in zip(rc._g_consts, jrc._g_consts):
         np.testing.assert_array_equal(g, w)
     # the JAX P^-1 is kept in storage form (x 2^64)
-    pinv = tmm.mul_mod(rc._pinv, tmm.moduli_col(
-        [(1 << 64) % q for q in rc.q_moduli], 3, "cpu"), rc._q)
+    pinv = tmm.mul_mod(rc._moddown._div_inv.reshape(-1, 1, 1, 1),
+                       tmm.moduli_col([(1 << 64) % q for q in rc.q_moduli],
+                                      3, "cpu"), rc._q)
     _eq(pinv.reshape(-1), jrc._pinv_mont)
 
 

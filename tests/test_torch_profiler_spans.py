@@ -145,10 +145,11 @@ def test_multiply_span_tree(tiny, multiply_profile):
         assert r.parent == root.id
     downs = _by_name(recs, "ks.mod_down")
     assert len(downs) == 2 and all(d.parent == finish[0].id for d in downs)
-    for r in _by_name(recs, "rns.scaled_residues") + \
-            _by_name(recs, "rns.extend_from"):
-        assert by[r.parent].name in ("ks.digit", "ks.mod_down")
-    assert len(recs) == 1 + 1 + dnum + 1 + 2 + 2 * (dnum + 2)
+    extends = _by_name(recs, "rns.extend")
+    assert len(extends) == dnum + 2
+    assert [by[r.parent].name for r in extends] == \
+        ["ks.digit"] * dnum + ["ks.mod_down"] * 2
+    assert len(recs) == 1 + 1 + dnum + 1 + 2 + (dnum + 2)
     for r in recs:
         if r.parent is not None:
             p = by[r.parent]
