@@ -408,11 +408,12 @@ class GaloisKeys:
 
     def apply(self, ct: Ciphertext, j: int) -> Ciphertext:
         """tau_j(ct): the packed slots permuted, re-keyed back to s."""
-        perm = self._perms[j]
-        tb = ct.b.index_select(1, perm)
-        ta = ct.a.index_select(1, perm)
-        kb, ka = self.rc.key_switch_d2(ta, self._keys[j])
-        return Ciphertext(b=mm.add_mod(tb, kb, self.rc._q), a=ka)
+        with span("ks.galois", j):
+            perm = self._perms[j]
+            tb = ct.b.index_select(1, perm)
+            ta = ct.a.index_select(1, perm)
+            kb, ka = self.rc.key_switch_d2(ta, self._keys[j])
+            return Ciphertext(b=mm.add_mod(tb, kb, self.rc._q), a=ka)
 
 
 class FullGaloisKeys:
@@ -481,14 +482,16 @@ class FullGaloisKeys:
         return t, e
 
     def apply(self, ct: Ciphertext, j: int) -> Ciphertext:
+        """tau_j(ct) as t + popcount(e) single-key switches (decompose)."""
         t, e = self.decompose(j)
-        out = ct
-        if t:
-            out = self._gk.apply(out, self._t_idx)
-        for k, idx in enumerate(self._g_idx):
-            if (e >> k) & 1:
-                out = self._gk.apply(out, idx)
-        return out
+        with span("ks.rotate", j):
+            out = ct
+            if t:
+                out = self._gk.apply(out, self._t_idx)
+            for k, idx in enumerate(self._g_idx):
+                if (e >> k) & 1:
+                    out = self._gk.apply(out, idx)
+            return out
 
     def slot_sum(self, ct: Ciphertext) -> Ciphertext:
         """EvalSum: every W slot becomes the sum of all phi(p) slots, in
@@ -621,13 +624,15 @@ def rescale_ciphertext(ctx: HEContext, ct: Ciphertext,
     reduced-chain transform; with it, the reduced-chain transform through
     the full chain's tables (per-limb independence makes the zero-pad and
     slice exact), as the JAX package's explicit-Rescaler path."""
-    b_wc, a_wc = ctx.wt.inverse(ct.b), ctx.wt.inverse(ct.a)
-    if rs is None:
-        rs, wt_rest = _rescale_pipeline(ctx)
-        return Ciphertext(b=wt_rest.forward(rs.rescale_component(b_wc)),
-                          a=wt_rest.forward(rs.rescale_component(a_wc)))
-    out = []
-    for y in (b_wc, a_wc):
-        padded = torch.cat([rs.rescale_component(y), torch.zeros_like(y[-1:])])
-        out.append(ctx.wt.forward(padded)[:-1])
-    return Ciphertext(b=out[0], a=out[1])
+    with span("ks.rescale"):
+        b_wc, a_wc = ctx.wt.inverse(ct.b), ctx.wt.inverse(ct.a)
+        if rs is None:
+            rs, wt_rest = _rescale_pipeline(ctx)
+            return Ciphertext(b=wt_rest.forward(rs.rescale_component(b_wc)),
+                              a=wt_rest.forward(rs.rescale_component(a_wc)))
+        out = []
+        for y in (b_wc, a_wc):
+            padded = torch.cat([rs.rescale_component(y),
+                                torch.zeros_like(y[-1:])])
+            out.append(ctx.wt.forward(padded)[:-1])
+        return Ciphertext(b=out[0], a=out[1])

@@ -9,8 +9,10 @@ bookkeeping.  Messages are limb-consistent ring elements in W-eval layout
 (what HEContext.encrypt takes); scales multiply under multiplication and
 divide by the dropped prime under rescale; callers decode at `lct.scale`.
 
-The secret is the reference-parity one, as in the JAX chain.  Per-level
-keys come from torch.Generators seeded from one seed, folded per use the
+The secret is the reference-parity one, as in the JAX chain, unless the
+caller gives its own signed ternary secret [W, n]: then every level's
+keys and the secret key are made from that one.  Per-level keys come
+from torch.Generators seeded from one seed, folded per use the
 way the JAX chain folds its key: the level for the relinearization key
 (leveled.py:104 there), (level + 1) * 1000 + j for the Galois key of j
 (:111), (level + 1) * 7919 for the full Galois set (:167).  The keys differ
@@ -25,6 +27,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..config import GLParams
+from ..ops import modmath as mm
 from ..ops._backend import resolve_device
 from .he import Ciphertext, HEContext, SecretKey
 from . import rng as refrng
@@ -49,7 +52,8 @@ class LeveledChain:
     device."""
 
     def __init__(self, params: GLParams, ring: str = "nega", seed: int = 0,
-                 p_moduli: Optional[Sequence[int]] = None, device="cuda"):
+                 p_moduli: Optional[Sequence[int]] = None, device="cuda",
+                 secret: Optional[torch.Tensor] = None):
         if ring != "nega":
             # gl2 leveling runs through Gl2Context / Gl2GemmRelin; the
             # folded GL ring admits no key switching at all
@@ -64,7 +68,15 @@ class LeveledChain:
         self._rc = {}
         self._rlk = {}
         self._gk = {}
-        self._s_coeff0 = refrng.ternary_secret(params, self.device)
+        if secret is None:
+            self._s_coeff0 = refrng.ternary_secret(params, self.device)
+        else:
+            if tuple(secret.shape) != (params.phi, params.n) or \
+                    bool((secret.abs() > 1).any()):
+                raise ValueError(f"secret must be ternary [{params.phi}, "
+                                 f"{params.n}]")
+            self._s_coeff0 = refrng._residues(
+                secret.to(self.device, torch.int64), params)
         self._sk0 = None
 
     def _generator(self, tag: int) -> torch.Generator:
@@ -95,7 +107,10 @@ class LeveledChain:
         """The one secret, restricted to the level's limb prefix (the
         ternary pattern is limb-consistent, so slicing is exact)."""
         if self._sk0 is None:
-            self._sk0 = self.ctx(0).generate_secret_key()
+            c0 = self.ctx(0)
+            self._sk0 = SecretKey(mm.to_mont(
+                c0.xntt.forward(c0.wt.forward(self._s_coeff0)),
+                self.base.moduli))
         return SecretKey(s_mont=self._sk0.s_mont[:self.limbs_at(level)])
 
     def rc(self, level: int) -> RelinContext:
