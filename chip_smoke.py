@@ -26,7 +26,9 @@ and read just after:
      inverse(forward(x)) == x on the whole batch; at 28 bits both word
      routes are timed in turns;
   3. the homomorphic matrix product at ref (ring "gl", HEMatmul, kernel K6
-     with K1, K2 and K4), max |C - Y^H X| < 1e-4 as examples/matmul.py;
+     with K1, K2, K4 and the Delta^2 decode's exact compose crt_compose),
+     max |C - Y^H X| < 1e-4 as examples/matmul.py; crt_compose against its
+     plain version on the decode's [11, 512, 64, 64] input, bit for bit;
   4. the gl2 ciphertext GEMM at ref as examples/matmul_gl2.py (Gl2Context,
      HEMatmul2, Gl2GemmRelin with the preset's P basis, dnum = 4): keygen,
      switch keys, encode, encrypt, tensor (K7), relinearize, decrypt and the
@@ -113,7 +115,8 @@ and K7's u8 digit products, K4's s8 digit products by the JAX kernel's
 Karatsuba method and K12's s8 dots at the int8 tensor-core rate of 1,979
 TOP/s; K5's Shoup products at the IMADs a product of its register
 kernel's SASS, per word width, its index and address IMADs left out, and
-base_conv's at an estimated 10 IMADs a product, at the card's IMAD rate
+base_conv's at an estimated 10 IMADs a product, crt_compose's at 10 a
+Shoup product and 7 a word of M_l t_l, at the card's IMAD rate
 of 64 a clock on each SM) and, where one PyTorch call computes the same
 function, that call's time (K11's copy: Tensor.copy_ on
 the same buffers, in turns).  For every row a [bound] line logs the byte
@@ -658,11 +661,39 @@ def matmul_path():
                        lambda: gemm.kernel(*ops), lambda: gemm.plain(*ops),
                        ops, cgemm_work(gemm, ops[0]))
     row["launches"] = launches.get(row.pop("key"), 0)
+    rows = [row, crt_compose_row(hm, tt, sk, launches)]
     summary = {"ref_matmul_err": err, "ref_matmul_tensor_ms": tensor_ms,
                "ref_matmul_decrypt_decode_ms": decode_ms,
                "ref_matmul_max_memory_allocated": peak,
                "ref_matmul_memory_above_held": peak - held}
-    return [row], summary, launches
+    return rows, summary, launches
+
+
+def crt_compose_row(hm, tt, sk, launches) -> dict:
+    """crt_compose against its plain version on what the Delta^2 decode
+    composes at ref: the W-CRT inverse of the decrypted tensor's real
+    part, [11, 512, 64, 64] residues of Delta^2-scaled values (bit for
+    bit, as float64 bit patterns)."""
+    benc = hm.ctx.batched_encoder
+    comp = benc.encoder._composer
+    x = benc.wt.inverse(hm.decrypt_fn(tt, sk)[0])
+    d2 = float(hm.params.delta) ** 2
+    got = comp.compose_to_float_kernel(x, d2)
+    want = comp.compose_to_float_plain(x, d2)
+    if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+        raise AssertionError("crt_compose differs from its plain version in "
+                             "the bits of the Delta^2 decode")
+    L, words = len(comp.moduli), comp.n_digits // 2
+    row = check_kernel(
+        f"crt_compose (Delta^2 decode, {L} limbs, {words} words, "
+        f"[{', '.join(map(str, x.shape))}])", "crt_compose",
+        "matrix_fhe_tpu_torch/csrc/crt_compose.cu",
+        "none: the JAX package's CRTComposer is plain jnp",
+        lambda: comp.compose_to_float_kernel(x, d2),
+        lambda: comp.compose_to_float_plain(x, d2), [x],
+        {"imad": got.numel() * L * (SHOUP_IMADS + WORD_PRODUCT_IMADS * words)})
+    row["launches"] = launches.get(row.pop("key"), 0)
+    return row
 
 
 def gl2_path():
@@ -856,6 +887,9 @@ def gl2_path():
 # word of x w' at 3 and 4 IMADs, the product by q at 3): the estimate of
 # the base conversion's operation bound
 SHOUP_IMADS = 10
+# IMADs of one 64 x 64-bit product's low and high words (3 and 4): the
+# estimate of crt_compose's M_l t_l a word
+WORD_PRODUCT_IMADS = 7
 EDGE = 2048                     # the f64 quotient's edge: M/2, ... +-2048
 
 
@@ -1704,15 +1738,18 @@ ENTRY_S = 600                   # one entry point's time limit
 # of its set-up, keys, encryptions, oracles, baselines, fences or rank 0's
 # unsharded references: the launch keys of K1 stage, K10a-tw stage_tw, K2
 # ntt_mul_ntt, K3 inv_compose, K4 fp_cmatmul, K5 four_step_fwd, K6 cgemm,
-# K7 gemm2x2, the base conversion base_conv)
+# K7 gemm2x2, the base conversion base_conv, the Delta^2 decode's compose
+# crt_compose)
 ENTRY_POINTS = (
     ("main", ["-m", "matrix_fhe_tpu_torch.examples.main"], r"SUCCESS \(",
      ("stage", "ntt_mul_ntt", "inv_compose", "fp_cmatmul")),
     ("matmul", ["-m", "matrix_fhe_tpu_torch.examples.matmul"],
-     r"\[matmul\] PASS$", ("cgemm", "ntt_mul_ntt", "stage", "fp_cmatmul")),
+     r"\[matmul\] PASS$",
+     ("cgemm", "ntt_mul_ntt", "stage", "fp_cmatmul", "crt_compose")),
     ("matmul_gl2", ["-m", "matrix_fhe_tpu_torch.examples.matmul_gl2"],
      r"\[gl2-gemm\] OK$",
-     ("gemm2x2", "ntt_mul_ntt", "stage", "fp_cmatmul", "base_conv")),
+     ("gemm2x2", "ntt_mul_ntt", "stage", "fp_cmatmul", "base_conv",
+      "crt_compose")),
     ("relinearize", ["-m", "matrix_fhe_tpu_torch.examples.relinearize"],
      r"\[relin\] PASS$", ("stage_tw", "stage", "base_conv")),
     ("leveled", ["-m", "matrix_fhe_tpu_torch.examples.leveled"],

@@ -30,7 +30,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("stage.cu", "ntt_mul_ntt.cu", "inv_compose.cu", "fp_cmatmul.cu",
            "four_step_ntt.cu", "cgemm.cu", "gemm2x2.cu", "micro_vpu.cu",
-           "micro_coissue.cu", "base_conv.cu")
+           "micro_coissue.cu", "base_conv.cu", "crt_compose.cu")
 HEADERS = ("modarith.cuh", "wgmma8.cuh")
 LIBRARY = os.path.join(BUILD, "libmfhe_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,6 +42,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {
     # name: argtypes after the C function's own name
     "mf_stage": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _LL,
@@ -60,6 +61,7 @@ _SIGNATURES = {
     "mf_coissue": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _P],
     "mf_base_conv": [_P, _P, _P, _P, _P, _I, _I, _LL, _P],
+    "mf_crt_compose": [_P, _P, _P, _I, _I, _LL, _D, _P],
     "mf_ntt_mul_ntt_smem": [_I],
     "mf_stage_layout": [_I, _I, _I, ctypes.POINTER(_I)],
     "mf_fp_layout": [_I, _I, ctypes.POINTER(_I)],

@@ -12,16 +12,24 @@ exceed that at ref scale).  The JAX digits live in uint64 lanes; torch has
 only signed int64, so a digit product (< 2^64) wraps and its high word is
 taken with a logical shift (modmath.shr_logical).  Every other
 intermediate is below 2^35.
+
+On a CUDA tensor compose_to_float is one launch of csrc/crt_compose.cu
+(launch key crt_compose), the same arithmetic on 64-bit words in
+registers; on a CPU tensor it runs the digit code below, its plain twin.
+The other composes run the digit code on either device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import TYPE_CHECKING, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import _backend as be
 from .modmath import mul_mod, shr_logical
+from .rns_ext import _shoup
 
 if TYPE_CHECKING:
     from ..tables import GLTables
@@ -31,6 +39,8 @@ I64 = torch.int64
 F64 = torch.float64
 I64_MAX = (1 << 63) - 1
 I64_MIN = -(1 << 63)
+MAX_WORDS = 8       # 64-bit words of Q the kernel holds in registers
+MAX_LIMBS = 64      # limbs whose constants fit the kernel's shared memory
 
 
 def _digits32(words: np.ndarray) -> List[int]:
@@ -53,6 +63,16 @@ class CRTComposer:
         self.q_digits = _digits32(tables.crt_q_big)
         self.q_half_digits = _digits32(tables.crt_q_half)
         self.inv = [int(v) for v in tables.crt_inv]
+        self.q_big = math.prod(self.moduli)
+        # the kernel's constants, uint64 words: per limb q, inv and its
+        # Shoup companion, M_l's words; then Q's and floor(Q/2)'s words
+        rows = [[q, w, _shoup(w, q)] + [int(v) for v in m]
+                for q, w, m in zip(self.moduli, self.inv, tables.crt_m)]
+        rows.append([int(v) for v in tables.crt_q_big]
+                    + [int(v) for v in tables.crt_q_half])
+        self._table = torch.from_numpy(np.array(
+            [v for row in rows for v in row], dtype=np.uint64).view(np.int64))
+        self._device_tables = {}
 
     # -- digit-vector helpers (digits < 2^32 in int64 tensors) --------------------
 
@@ -141,6 +161,36 @@ class CRTComposer:
     def compose_to_float(self, x_rns: torch.Tensor, delta: float) -> torch.Tensor:
         """Centered value / delta as float64, folded from the most
         significant 64-bit word down (HE.cu:1007-1027)."""
+        if be.on_device(x_rns):
+            return self.compose_to_float_kernel(x_rns.contiguous(), delta)
+        return self.compose_to_float_plain(x_rns, delta)
+
+    def compose_to_float_kernel(self, x_rns: torch.Tensor, delta: float
+                                ) -> torch.Tensor:
+        """One launch of csrc/crt_compose.cu on x_rns [L, ...]."""
+        L, words = len(self.moduli), self.n_digits // 2
+        if not 1 <= L <= MAX_LIMBS:
+            raise ValueError(f"crt_compose takes 1 to {MAX_LIMBS} limbs, "
+                             f"not {L}")
+        if not 1 <= words <= MAX_WORDS:
+            raise ValueError(f"crt_compose takes Q of 1 to {MAX_WORDS} "
+                             f"64-bit words, not {words}")
+        if 2 * self.q_big >= 1 << (64 * words):
+            raise ValueError("crt_compose needs 2 Q to fit Q's words")
+        rest = tuple(x_rns.shape[1:])
+        be.check(x_rns, "x_rns", I64, (L,) + rest)
+        dev = x_rns.device
+        if dev not in self._device_tables:
+            self._device_tables[dev] = self._table.to(dev)
+        out = torch.empty(rest, dtype=F64, device=dev)
+        be.launch("crt_compose", "mf_crt_compose", dev, x_rns, out,
+                  self._device_tables[dev], L, words, math.prod(rest),
+                  float(delta))
+        return out
+
+    def compose_to_float_plain(self, x_rns: torch.Tensor, delta: float
+                               ) -> torch.Tensor:
+        """compose_to_float's digit code (the kernel's plain twin)."""
         mag, neg = self.compose_magnitude(x_rns)
         v = torch.zeros(x_rns.shape[1:], dtype=F64, device=x_rns.device)
         for i in range(self.n_digits // 2 - 1, -1, -1):
