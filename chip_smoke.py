@@ -228,18 +228,16 @@ def check_kernel(name, key, source, replaces, kernel_fn, plain_fn, inputs,
 
 
 def stage_work(stage, data) -> dict:
-    """Operations of one K1 / K10a call by the digit-plane method: u8
-    products, 2 x rows x cols x (d_l K) x d_l a limb, with d_l =
-    ceil(bits / 8) data digits and table planes, on every side (the right
-    side's kernel reads each int64 as 8 byte slots, 8 K digit rows: the
-    zero slots are the design's cost, not the function's work).  A
-    twiddle's one Montgomery product an output is not counted: it never set
-    a row's bound."""
-    from matrix_fhe_tpu_torch.ops.cuda_ntt import digit_count
-    L, W, K = stage.table.shape
-    outs = (data.numel() // K) * W // L      # outputs of one limb
-    return {"int8": sum(2 * outs * d * K * d
-                        for d in map(digit_count, stage.moduli))}
+    """Operations of one K1 / K10a call: the benchmark's count
+    (fhebench/roofline/stage.work), the u8 digit products of the
+    digit-plane method (the right side's kernel reads each int64 as 8 byte
+    slots, 8 K digit rows: the zero slots are the design's cost, not the
+    function's work).  A twiddle's one Montgomery product an output is not
+    counted: it never set a row's bound."""
+    from fhebench.roofline.stage import work
+    _, W, K = stage.table.shape
+    return {"int8": work(stage.moduli, stage.table.shape, data.numel(),
+                         (data.numel() // K) * W)["int8"]}
 
 
 def ntt_mul_ntt_work(k2, a_rows) -> dict:

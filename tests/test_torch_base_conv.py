@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu_torch import HEContext, RelinContext, SecretKey
 from matrix_fhe_tpu_torch.config import get_params
 from matrix_fhe_tpu_torch.models import keyswitch as tks

@@ -16,6 +16,7 @@ import sys
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu.ops.ntt_large import generate_primes_1mod as jax_primes
 from matrix_fhe_tpu_torch.config import generate_primes_1mod
 from matrix_fhe_tpu_torch.ops.ntt_large import FourStepNTT

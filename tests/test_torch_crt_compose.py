@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu_torch import HEContext, HEMatmul
 from matrix_fhe_tpu_torch.config import generate_primes_1mod, get_params
 from matrix_fhe_tpu_torch.ops import _backend as be

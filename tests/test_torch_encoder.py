@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu.config import get_params as jax_params
 from matrix_fhe_tpu.models.batched_encoder import BatchedEncoder as JaxEncoder
 from matrix_fhe_tpu.ops import modmath as jmm

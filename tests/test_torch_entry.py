@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu_torch import entry
 from matrix_fhe_tpu_torch.config import get_params
 from matrix_fhe_tpu_torch.models.he2 import Gl2Context

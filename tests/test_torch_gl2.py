@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu import tables as jtables
 from matrix_fhe_tpu.config import REF_P_MODULI
 from matrix_fhe_tpu.config import get_params as jax_params

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu.config import get_params as jax_params
 from matrix_fhe_tpu.models import keyswitch as jks
 from matrix_fhe_tpu.models.he2 import Gl2Context as JaxGl2Context

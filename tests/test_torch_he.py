@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu.config import get_params as jax_params
 from matrix_fhe_tpu.models.he import HEContext as JaxContext
 from matrix_fhe_tpu_torch import convert, init_he_backend

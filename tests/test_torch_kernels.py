@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu.config import REF_P_MODULI, generate_ntt_primes, get_params
 from matrix_fhe_tpu.ops import ddfloat as jdd
 from matrix_fhe_tpu.ops import fpmatmul as jfp

@@ -17,6 +17,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu_torch import entry
 from matrix_fhe_tpu_torch.config import get_params
 from matrix_fhe_tpu_torch.examples import (leveled, main, matmul, matmul_gl2,

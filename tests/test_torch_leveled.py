@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu.config import get_params as jax_params
 from matrix_fhe_tpu.models.he import HEContext as JaxContext
 from matrix_fhe_tpu.models.leveled import LeveledChain as JaxChain

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from fhebench import kinds
 from fhebench.reference import leveled as ref
 from fhebench.reference.scheme import Ring

@@ -22,6 +22,8 @@ import os
 
 import pytest
 
+import torch_workers  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(ROOT, "matrix_fhe_tpu")
 PORT_PKG = os.path.join(ROOT, "matrix_fhe_tpu_torch")

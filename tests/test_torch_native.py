@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu.native import tablegen as jax_tablegen
 from matrix_fhe_tpu_torch.config import get_params
 from matrix_fhe_tpu_torch.models import rng as refrng

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu.ops import ntt_large as jnl
 from matrix_fhe_tpu_torch.ops import ntt_large as tnl
 

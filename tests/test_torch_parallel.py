@@ -22,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 import bench_dist as jax_bench_dist
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu.config import get_params as jax_params
 from matrix_fhe_tpu.models import keyswitch as jks
 from matrix_fhe_tpu.models import rng as jrng

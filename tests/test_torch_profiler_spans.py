@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu_torch import HEContext, HEMatmul, RelinContext, SecretKey
 from matrix_fhe_tpu_torch.config import get_params
 from matrix_fhe_tpu_torch.ops import _backend

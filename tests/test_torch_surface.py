@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu.config import get_params as jax_params
 from matrix_fhe_tpu.models.encoder import Encoder as JaxEncoder
 from matrix_fhe_tpu.ops import ntt as jntt

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu.config import get_params as jax_params
 from matrix_fhe_tpu.tables import build_tables as jax_tables
 from matrix_fhe_tpu_torch import convert

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_workers  # noqa: F401
 from matrix_fhe_tpu.config import generate_ntt_primes
 from matrix_fhe_tpu.config import get_params as jax_params
 from matrix_fhe_tpu.models import trace as jtr
