@@ -123,7 +123,11 @@ the same buffers, in turns).  For every row a [bound] line logs the byte
 and operation bounds apart; K3's parts (split, GEMM, compose) and K4's
 split pass are timed apart on [kernel] lines, and so is K2's function as
 two launches (K10a's twiddle form forward with s as the twiddle, then
-K1's inverse), the yardstick of its fusion.  The rows of K2, K1 and K10a's
+K1's inverse), the yardstick of its fusion.  K1's and K10a's rows on side
+'right' at a contraction of at most 128 terms (the X-NTT: launch keys
+stage_x, stage_tw_x, csrc/xntt_stage.cu) also hold the general
+stage_kernel to the same inputs and time it in turns with the route (its
+yardstick, general_ms).  The rows of K2, K1 and K10a's
 twiddle form carry their launches on every path (`launches_by_path`, the
 conjugation of path 4 as "4_gl2_conj"); K10a's twiddle-form rows carry only
 the path that runs their shape (path 5 at 64 points, the conjugation at
@@ -132,8 +136,10 @@ on [4, 1024, 256]); path 8's entry points count as "8_entry_points", the
 sum of the {"launches": ...} lines of its processes (for mid's rows, of
 the relinearize and leveled processes, which switch keys at mid, beside
 "5b_mid_keyswitch").  The SASS check fails if
-a kernel whose products run on the tensor cores (K1, K2, K4, K6, K7, and
-K12's mxu, both and dep instantiations) has no wgmma instruction.
+a kernel whose products run on the tensor cores (K1, K1 / K10a's X-NTT
+kernel, K2, K4, K6, K7, and K12's mxu, both and dep instantiations) has no
+wgmma instruction, or if the X-NTT kernel has a stack frame or local
+memory (a spill: cuobjdump -res-usage).
 Fails (nonzero exit, no result line) without a CUDA device, on a build or
 launch error, on any disagreement, or when a path's check fails.
 
@@ -238,6 +244,39 @@ def stage_work(stage, data) -> dict:
     _, W, K = stage.table.shape
     return {"int8": work(stage.moduli, stage.table.shape, data.numel(),
                          (data.numel() // K) * W)["int8"]}
+
+
+def check_stage(label, stage, data, tw=None, reps=5):
+    """A K1 / K10a row through Stage.kernel under its route's launch key.
+    On the X-NTT route (side 'right', K <= 128: csrc/xntt_stage.cu) the
+    general stage_kernel (Stage.general, through mf_stage) runs the same
+    inputs as the yardstick: equal bit for bit, and timed in turns with the
+    route (X-NTT, general, general, X-NTT) on a [kernel] line beside the
+    byte bound; its mean is the row's general_ms."""
+    from matrix_fhe_tpu_torch.ops.cuda_ntt import takes_xntt
+    key = stage.launch_key(tw is not None)
+    xntt = takes_xntt(stage.side, stage.table.shape[2])
+    name = (f"{key} ({'K10a' if tw is not None else 'K1'}"
+            f"{' X-NTT kernel' if xntt else ''}, {label})")
+    inputs = [stage.table, data] + ([] if tw is None else [tw])
+    row = check_kernel(
+        name, key, "matrix_fhe_tpu_torch/csrc/"
+        + ("xntt_stage.cu" if xntt else "stage.cu"),
+        "matrix_fhe_tpu/ops/pallas_ntt.py:460" if tw is not None
+        else "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
+        lambda: stage.kernel(data, tw), lambda: stage.plain(data, tw),
+        inputs, stage_work(stage, data), reps=reps)
+    if xntt:
+        if not torch.equal(stage.general(data, tw), stage.kernel(data, tw)):
+            raise AssertionError(f"{name}: the X-NTT kernel differs from "
+                                 "the general stage_kernel")
+        ts = [cuda_ms(lambda: f(data, tw), reps) for f in
+              (stage.kernel, stage.general, stage.general, stage.kernel)]
+        row["general_ms"] = (ts[1] + ts[2]) / 2
+        log(f"[kernel] {name}: X-NTT kernel {ts[0]:.3f}, {ts[3]:.3f} ms; "
+            f"general stage_kernel {ts[1]:.3f}, {ts[2]:.3f} ms (in turns); "
+            f"bytes {1e3 * row['bytes'] / HBM_BYTES_PER_S:.3f} ms")
+    return row
 
 
 def ntt_mul_ntt_work(k2, a_rows) -> dict:
@@ -346,6 +385,21 @@ def sass_functions() -> dict:
     return {f.split()[0]: f for f in re.split(r"\n\s*Function : ", sass)[1:]}
 
 
+def resource_usage(kernel: str) -> dict:
+    """cuobjdump -res-usage of the built library for the function whose
+    name holds `kernel`: {"REG": registers, "STACK": bytes, "LOCAL":
+    bytes, ...}; a stack frame or local memory is where a spill goes."""
+    from matrix_fhe_tpu_torch.ops import _backend as be
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lines = subprocess.run([tool, "-res-usage", be.LIBRARY], check=True,
+                           capture_output=True, text=True).stdout.splitlines()
+    for i, line in enumerate(lines[:-1]):
+        if line.strip().startswith("Function") and kernel in line:
+            return {k: int(v) for k, v in
+                    re.findall(r"(\w+):(\d+)", lines[i + 1])}
+    raise AssertionError(f"no function {kernel} in the library")
+
+
 def _opcode(text):
     return text.split()[1] if text.startswith("@") else text.split()[0]
 
@@ -421,7 +475,8 @@ def k5_imads_per_product(funcs, r: int = 16) -> dict:
 
 def tensor_core_ops(funcs, kernel: str) -> int:
     """Warpgroup tensor-core instructions (IGMMA) in a kernel whose
-    products run on the int8 tensor cores (K1's stage_kernel, K2's
+    products run on the int8 tensor cores (K1's stage_kernel, K1 / K10a's
+    xntt_stage_kernel, K2's
     ntt_mul_ntt_kernel, K4's fp_cmatmul_kernel, K6's cgemm_kernel, K7's
     gemm2x2_kernel, K12's coissue_kernel<1, 3, 4>: a name's part as
     cuobjdump mangles it, "coissue_kernelILi1E"), summed over the
@@ -454,11 +509,7 @@ def kernel_checks(ctx, gen):
         lambda: wt._fwd.kernel(d_w), lambda: wt._fwd.plain(d_w),
         [wt._fwd.table, d_w], stage_work(wt._fwd, d_w)))
     d_x = random_residues(p.moduli, (W, n), gen)
-    rows.append(check_kernel(
-        "stage (K1, X-NTT)", "stage", "matrix_fhe_tpu_torch/csrc/stage.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
-        lambda: xntt._fwd.kernel(d_x), lambda: xntt._fwd.plain(d_x),
-        [xntt._fwd.table, d_x], stage_work(xntt._fwd, d_x)))
+    rows.append(check_stage("X-NTT", xntt._fwd, d_x))
     a_rows = random_residues(p.moduli, (W * n, n), gen)
     s_mont = random_residues(p.moduli, (W, n), gen)
     k2 = xntt._mul_s
@@ -816,12 +867,7 @@ def gl2_path():
         lambda: fwd_w.kernel(d_w), lambda: fwd_w.plain(d_w),
         [fwd_w.table, d_w], stage_work(fwd_w, d_w)))
     d_x = d_w.reshape(len(rc.qp_moduli), W * m, m)
-    rows.append(check_kernel(
-        f"stage (K1, QP X-NTT, {m} points)", "stage",
-        "matrix_fhe_tpu_torch/csrc/stage.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
-        lambda: fwd_x.kernel(d_x), lambda: fwd_x.plain(d_x),
-        [fwd_x.table, d_x], stage_work(fwd_x, d_x)))
+    rows.append(check_stage(f"QP X-NTT, {m} points", fwd_x, d_x))
     del d_w, d_x
     # K4 on the encode's inverse tables (Encoder.idft2_exact and
     # WTransform.dft_inverse_pair) at [W, n, n]
@@ -1160,12 +1206,8 @@ def leveled_path():
     gen = torch.Generator(device="cuda").manual_seed(13)
     d = random_residues(qp, (W * n, n), gen)
     tw = random_residues(qp, (W * n, n), gen)
-    rows = [check_kernel(
-        f"stage_tw (K10a, QP X-NTT x twiddle, {len(qp)} limbs)", "stage_tw",
-        "matrix_fhe_tpu_torch/csrc/stage.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:460",
-        lambda: fwd_x.kernel(d, tw), lambda: fwd_x.plain(d, tw),
-        [fwd_x.table, d, tw], stage_work(fwd_x, d))]
+    rows = [check_stage(f"QP X-NTT x twiddle, {len(qp)} limbs, "
+                        f"{list(d.shape)}", fwd_x, d, tw)]
     rows[0]["paths"] = ("5_keyswitch",)
     rows += bc_rows
     del d, tw
@@ -1328,7 +1370,7 @@ def mid_keyswitch_path():
                              "from the CPU plain path")
     if not noise < 1 << 25:
         raise AssertionError(f"mid relinearization noise {noise} >= 2^25")
-    for key in ("stage", "stage_tw", "base_conv"):
+    for key in ("stage", "stage_x", "stage_tw_x", "base_conv"):
         if launches.get(key, 0) <= 0:
             raise AssertionError(f"mid multiply_relinearize launched no {key}")
     log("[check] mid multiply_relinearize (dnum 1, 6 x 28-bit P): card == "
@@ -1348,21 +1390,13 @@ def mid_keyswitch_path():
         lambda: fwd_w.kernel(d), lambda: fwd_w.plain(d), [fwd_w.table, d],
         stage_work(fwd_w, d))]
     d = random_residues(qp, (W * n, n), g)
-    rows.append(check_kernel(
-        f"stage (K1, mid key-switch QP X-NTT inverse, {len(qp)} limbs, "
-        f"[{len(qp)}, {W * n}, {n}])", "stage",
-        "matrix_fhe_tpu_torch/csrc/stage.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
-        lambda: inv_x.kernel(d), lambda: inv_x.plain(d), [inv_x.table, d],
-        stage_work(inv_x, d)))
+    rows.append(check_stage(
+        f"mid key-switch QP X-NTT inverse, {len(qp)} limbs, "
+        f"[{len(qp)}, {W * n}, {n}]", inv_x, d))
     tw = random_residues(qp, (W * n, n), g)
-    rows.append(check_kernel(
-        f"stage_tw (K10a, mid QP X-NTT x twiddle, {len(qp)} limbs, "
-        f"[{len(qp)}, {W * n}, {n}])", "stage_tw",
-        "matrix_fhe_tpu_torch/csrc/stage.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:460",
-        lambda: fwd_x.kernel(d, tw), lambda: fwd_x.plain(d, tw),
-        [fwd_x.table, d, tw], stage_work(fwd_x, d)))
+    rows.append(check_stage(
+        f"mid QP X-NTT x twiddle, {len(qp)} limbs, [{len(qp)}, {W * n}, {n}]",
+        fwd_x, d, tw))
     del d, tw, fwd_w, fwd_x, inv_x
     rows += base_conv_checks(
         "mid", [("digit", rc_g._extenders[0], False),
@@ -1589,7 +1623,7 @@ def parallel_rows(device, dp: int, tp: int) -> list:
 PAR_NEEDS = {"ntt": ("stage", "stage_tw"),
              "pipeline": ("stage", "ntt_mul_ntt", "inv_compose",
                           "fp_cmatmul"),
-             "keyswitch": ("stage", "stage_tw", "base_conv")}
+             "keyswitch": ("stage", "stage_x", "stage_tw_x", "base_conv")}
 
 
 def parallel_rank(device, dp: int, tp: int, rows: bool) -> dict:
@@ -1734,10 +1768,10 @@ ENTRY_S = 600                   # one entry point's time limit
 # (label, command after the interpreter, pass line, the kernels its own
 # calls must launch -- each prints the launches of those calls alone, not
 # of its set-up, keys, encryptions, oracles, baselines, fences or rank 0's
-# unsharded references: the launch keys of K1 stage, K10a-tw stage_tw, K2
-# ntt_mul_ntt, K3 inv_compose, K4 fp_cmatmul, K5 four_step_fwd, K6 cgemm,
-# K7 gemm2x2, the base conversion base_conv, the Delta^2 decode's compose
-# crt_compose)
+# unsharded references: the launch keys of K1 stage, K10a-tw stage_tw, the
+# X-NTT route's stage_x and stage_tw_x, K2 ntt_mul_ntt, K3 inv_compose, K4
+# fp_cmatmul, K5 four_step_fwd, K6 cgemm, K7 gemm2x2, the base conversion
+# base_conv, the Delta^2 decode's compose crt_compose)
 ENTRY_POINTS = (
     ("main", ["-m", "matrix_fhe_tpu_torch.examples.main"], r"SUCCESS \(",
      ("stage", "ntt_mul_ntt", "inv_compose", "fp_cmatmul")),
@@ -1749,16 +1783,16 @@ ENTRY_POINTS = (
      ("gemm2x2", "ntt_mul_ntt", "stage", "fp_cmatmul", "base_conv",
       "crt_compose")),
     ("relinearize", ["-m", "matrix_fhe_tpu_torch.examples.relinearize"],
-     r"\[relin\] PASS$", ("stage_tw", "stage", "base_conv")),
+     r"\[relin\] PASS$", ("stage_tw_x", "stage_x", "stage", "base_conv")),
     ("leveled", ["-m", "matrix_fhe_tpu_torch.examples.leveled"],
      r"\[leveled\] \|ct - oracle\| composed max = \d+ \(OK\)$",
-     ("stage_tw", "stage", "ntt_mul_ntt", "base_conv")),
+     ("stage_tw_x", "stage_x", "stage", "ntt_mul_ntt", "base_conv")),
     ("bench", ["-m", "matrix_fhe_tpu_torch.scripts.bench"], r'^\{"metric": ',
      ("four_step_fwd", "stage", "ntt_mul_ntt", "inv_compose", "fp_cmatmul")),
     ("dryrun_multichip(4)", ["-m", "matrix_fhe_tpu_torch.entry", "--dryrun",
                              "4"], r"\[dryrun\] OK$",
-     ("stage", "stage_tw", "ntt_mul_ntt", "inv_compose", "fp_cmatmul",
-      "gemm2x2", "base_conv")),
+     ("stage", "stage_x", "stage_tw_x", "ntt_mul_ntt", "inv_compose",
+      "fp_cmatmul", "gemm2x2", "base_conv")),
 )
 # FourStepNTT's sizes held to its plain version: n1 != n2 takes the stage
 # route (N = 2^13 is 64 x 128, 2^15 128 x 256, 2^17 256 x 512)
@@ -1840,9 +1874,12 @@ def four_step_check(gen):
     log(f"[four-step] launches (first calls and the timed ones): {launches}")
     if launches.get("four_step_fwd", 0) or launches.get("four_step_inv", 0):
         raise AssertionError(f"the stage route launched K5: {launches}")
-    if launches.get("stage", 0) <= 0 or launches.get("stage_tw", 0) <= 0:
-        raise AssertionError(f"the stage route launched no K1 / K10a-tw: "
-                             f"{launches}")
+    # 2^17's stages (256 and 512 terms) take the general kernel, 2^13's
+    # and 2^15's of at most 128 terms the X-NTT route
+    for key in ("stage", "stage_tw", "stage_x", "stage_tw_x"):
+        if launches.get(key, 0) <= 0:
+            raise AssertionError(f"the stage route launched no {key}: "
+                                 f"{launches}")
     st = objs[FOUR_STEP_LOGS[-1]].stages
     p = st.plan
     st1, st2 = st.st["t1f"], st.st["t2f"]
@@ -2132,7 +2169,8 @@ def gl2_conj_path(ctx, hm, rc, sk, X, gen):
                                  for _ in range(3))
     log(f"[conj] keygen {keygen_ms:.3f} ms, apply {apply_ms:.3f} ms (median "
         f"of 3 after the first call, CUDA events); K1 {apply_launches.get('stage', 0)}, "
-        f"stage_tw {apply_launches.get('stage_tw', 0)}, K2 "
+        f"stage_x {apply_launches.get('stage_x', 0)}, stage_tw_x "
+        f"{apply_launches.get('stage_tw_x', 0)}, K2 "
         f"{apply_launches.get('ntt_mul_ntt', 0)} launches in one apply")
     del cj, ct, ct_c
     torch.cuda.empty_cache()
@@ -2143,12 +2181,8 @@ def gl2_conj_path(ctx, hm, rc, sk, X, gen):
     fwd_x = rc.xntt_qp._fwd
     d = random_residues(qp, (ctx.params.phi * ctx.params.n, m), gen)
     tw = random_residues(qp, (ctx.params.phi * ctx.params.n, m), gen)
-    row = check_kernel(
-        f"stage_tw (K10a, gl2 QP X-NTT x twiddle, {m} points, {len(qp)} "
-        f"limbs)", "stage_tw", "matrix_fhe_tpu_torch/csrc/stage.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:460",
-        lambda: fwd_x.kernel(d, tw), lambda: fwd_x.plain(d, tw),
-        [fwd_x.table, d, tw], stage_work(fwd_x, d))
+    row = check_stage(f"gl2 QP X-NTT x twiddle, {m} points, {len(qp)} "
+                      f"limbs", fwd_x, d, tw)
     row["launches"] = launches.get(row.pop("key"), 0)
     row["paths"] = ("4_gl2_conj",)
     del d, tw
@@ -2226,7 +2260,8 @@ def main() -> int:
     funcs = sass_functions()
     k5_imads = k5_imads_per_product(funcs)
     igmma = {name: tensor_core_ops(funcs, kernel) for name, kernel in (
-        ("K1 stage_kernel (u8)", "stage_kernel"),
+        ("K1 stage_kernel (u8)", "12stage_kernel"),
+        ("K1 / K10a xntt_stage_kernel (u8)", "17xntt_stage_kernel"),
         ("K2 ntt_mul_ntt_kernel (u8)", "ntt_mul_ntt_kernel"),
         ("K4 fp_cmatmul_kernel (s8)", "fp_cmatmul_kernel"),
         ("K6 cgemm_kernel (u8)", "cgemm_kernel"),
@@ -2239,6 +2274,14 @@ def main() -> int:
         f"32-bit words; IGMMA (wgmma) instructions: "
         + ", ".join(f"{k} {v}" for k, v in igmma.items())
         + " (cuobjdump -sass)")
+    # the X-NTT kernel's warpgroups share the block's 168 registers a thread
+    # through setmaxnreg: a stack frame or local memory would be a spill
+    xntt_res = resource_usage("17xntt_stage_kernel")
+    log(f"[sass] xntt_stage_kernel: {xntt_res.get('REG')} registers at "
+        f"entry, stack {xntt_res.get('STACK')} B, local "
+        f"{xntt_res.get('LOCAL')} B (cuobjdump -res-usage)")
+    if xntt_res.get("STACK", 0) or xntt_res.get("LOCAL", 0):
+        raise AssertionError(f"xntt_stage_kernel spills: {xntt_res}")
     t_path = time.perf_counter()
 
     p = get_params("ref")
@@ -2444,6 +2487,8 @@ def main() -> int:
                ("8_entry_points", ep_launches), ("8_four_step", fs_launches))
     for key, prefix in (("ntt_mul_ntt", "ntt_mul_ntt"), ("stage", "stage (K1"),
                         ("stage_tw", "stage_tw (K10a"),
+                        ("stage_x", "stage_x (K1"),
+                        ("stage_tw_x", "stage_tw_x (K10a"),
                         ("base_conv", "base_conv (ref")):
         counts = {path: c.get(key, 0) for path, c in by_path}
         log(f"[launches] {key} by path: {counts}")

@@ -28,9 +28,10 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("stage.cu", "ntt_mul_ntt.cu", "inv_compose.cu", "fp_cmatmul.cu",
-           "four_step_ntt.cu", "cgemm.cu", "gemm2x2.cu", "micro_vpu.cu",
-           "micro_coissue.cu", "base_conv.cu", "crt_compose.cu")
+SOURCES = ("stage.cu", "xntt_stage.cu", "ntt_mul_ntt.cu", "inv_compose.cu",
+           "fp_cmatmul.cu", "four_step_ntt.cu", "cgemm.cu", "gemm2x2.cu",
+           "micro_vpu.cu", "micro_coissue.cu", "base_conv.cu",
+           "crt_compose.cu")
 HEADERS = ("modarith.cuh", "wgmma8.cuh")
 LIBRARY = os.path.join(BUILD, "libmfhe_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,6 +49,7 @@ _SIGNATURES = {
     "mf_stage": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _LL,
                  _I, _I, _P],
     "mf_stage_split": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mf_stage_x": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mf_ntt_mul_ntt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P],
     "mf_inv_compose": [_P, _P, _P, _P, _P, _I, _LL, _P],

@@ -9,7 +9,9 @@ chip_smoke.py hold the two equal).  All limbs run in one launch.  K1,
 K10a and K3's matmul run on the int8 tensor cores over u8 digit planes of
 the table (``slice_tables``, built on the device at a Stage's first CUDA
 call), K3's compose in a pass of its own; K2 runs two such GEMMs in one
-launch with the spectrum in shared memory.
+launch with the spectrum in shared memory.  Side 'right' at a contraction
+of at most XNTT_MAX_K terms (the X-NTT) has a kernel of its own
+(``takes_xntt``), built for a short, byte-bound contraction.
 The TPU's limb runs and u32 lo/hi planes do not exist here.
 """
 
@@ -28,6 +30,7 @@ from .modmatmul import modmatmul
 
 I64 = torch.int64
 SMEM_LIMIT = 232448     # shared memory one block may hold on Hopper (227 KB)
+XNTT_MAX_K = 128        # side 'right' contractions csrc/xntt_stage.cu takes
 
 
 def _as_i64(table_u64: np.ndarray, device) -> torch.Tensor:
@@ -97,6 +100,15 @@ def slice_tables(table: torch.Tensor, moduli: Sequence[int], side: str,
     return planes.reshape(L, wt, tile_w, dmax, kbs).transpose(2, 3).contiguous()
 
 
+def takes_xntt(side: str, k: int) -> bool:
+    """The route rule of Stage.kernel, read from the table's shape: side
+    'right' with a contraction of at most XNTT_MAX_K terms (every X-NTT at
+    n = 64, the gl2 ring's 128, four-step stages of those sizes) runs
+    csrc/xntt_stage.cu; the left sides and longer contractions run
+    csrc/stage.cu."""
+    return side == "right" and k <= XNTT_MAX_K
+
+
 class Stage:
     """K1 and K10a: one exact modular matmul stage per limb, canonical
     output, optionally times a per-output twiddle.
@@ -119,9 +131,13 @@ class Stage:
 
     On the card the products are u8 digit-plane GEMMs on the int8 tensor
     cores (csrc/stage.cu); the left sides first split the data into
-    transposed digit planes (launch key "stage_split").  `keys` renames the
-    launch keys of the plain GEMM and the split pass, for a Stage inside
-    another kernel's function (K3).
+    transposed digit planes (launch key "stage_split").  Side 'right' at a
+    contraction of at most XNTT_MAX_K terms runs the same arithmetic in
+    csrc/xntt_stage.cu, a kernel for short contractions (launch keys
+    "stage_x", "stage_tw_x"; `takes_xntt`); `general` runs csrc/stage.cu on
+    any call, its yardstick.  `keys` renames the launch keys of the plain
+    GEMM and the split pass, for a Stage inside another kernel's function
+    (K3).
     """
 
     def __init__(self, tables_u64: np.ndarray, moduli: Sequence[int],
@@ -183,8 +199,32 @@ class Stage:
         return mul_mod(out.reshape(L, R // tw_rows, tw_rows, W), tw[:, None],
                        self.q[..., None]).reshape(out.shape)
 
+    def launch_key(self, twiddle: bool) -> str:
+        """The launch key a kernel call of this Stage counts under, with or
+        without a twiddle."""
+        if takes_xntt(self.side, self.table.shape[2]):
+            return "stage_tw_x" if twiddle else "stage_x"
+        return self._general_key(twiddle)
+
+    def _general_key(self, twiddle: bool) -> str:
+        if not twiddle:
+            return self.keys[0]
+        return "stage_tw" if self.side == "right" else "stage_tw_batched"
+
     def kernel(self, data: torch.Tensor,
                twiddle_mont: torch.Tensor | None = None) -> torch.Tensor:
+        return self._launch(data, twiddle_mont,
+                            takes_xntt(self.side, self.table.shape[2]))
+
+    def general(self, data: torch.Tensor,
+                twiddle_mont: torch.Tensor | None = None) -> torch.Tensor:
+        """csrc/stage.cu on any call, the X-NTT kernel's short contractions
+        included (launch keys as the left sides' and the long ones'): the
+        yardstick of the X-NTT route in the tests and chip_smoke.py."""
+        return self._launch(data, twiddle_mont, False)
+
+    def _launch(self, data: torch.Tensor, twiddle_mont, xntt: bool
+                ) -> torch.Tensor:
         L, W, K = self.table.shape
         batch = 1
         if self.side == "left":
@@ -203,13 +243,14 @@ class Stage:
             be.check(data, "data", I64, (L, R, K))
             out = torch.empty((L, R, W), dtype=I64, device=data.device)
             rows = R
-        if twiddle_mont is None:
-            key, tw, tw_rows = self.keys[0], None, 1
-        else:
-            key = "stage_tw" if self.side == "right" else "stage_tw_batched"
-            tw = twiddle_mont
+        tw, tw_rows = twiddle_mont, 1
+        if tw is not None:
             tw_rows = self._check_twiddle(tw, out.shape)
             be.check(tw, "twiddle_mont", I64, tuple(tw.shape))
+            if tw.data_ptr() % 16:      # read as 16-byte pairs
+                tw = tw.clone()
+        key = self.launch_key(tw is not None) if xntt \
+            else self._general_key(tw is not None)
         kp, kbs = self._device_layout()
         left = self.side != "right"
         if left:    # the data's digit planes, transposed to K-major rows
@@ -221,9 +262,14 @@ class Stage:
             if data.data_ptr() % 16:
                 data = data.clone()
             xs, s_z, s_row = data, rows * 8 * kp, 8 * kp
-        be.launch(key, "mf_stage", data.device, xs, self._planes, out,
-                  self.consts, tw, L, batch, rows, W, kp, int(left),
-                  tw_rows, s_z, s_row, kbs, self._planes.shape[2])
+        dmax = self._planes.shape[2]
+        if xntt:
+            be.launch(key, "mf_stage_x", data.device, xs, self._planes, out,
+                      self.consts, tw, L, rows, W, kp, tw_rows, kbs, dmax)
+        else:
+            be.launch(key, "mf_stage", data.device, xs, self._planes, out,
+                      self.consts, tw, L, batch, rows, W, kp, int(left),
+                      tw_rows, s_z, s_row, kbs, dmax)
         return out
 
     def _device_layout(self) -> Tuple[int, int]:

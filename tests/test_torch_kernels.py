@@ -36,9 +36,10 @@ from matrix_fhe_tpu_torch.ops import ddfloat as tdd
 from matrix_fhe_tpu_torch.ops import fpmatmul as tfp
 from matrix_fhe_tpu_torch.ops import modmath as tmm
 from matrix_fhe_tpu_torch.ops import probes
-from matrix_fhe_tpu_torch.ops.cuda_ntt import (InvCompose, NttMulNtt, Stage,
-                                               digit_count, plane_layout,
-                                               slice_tables)
+from matrix_fhe_tpu_torch.ops.cuda_ntt import (XNTT_MAX_K, InvCompose,
+                                               NttMulNtt, Stage, digit_count,
+                                               plane_layout, slice_tables,
+                                               takes_xntt)
 from matrix_fhe_tpu_torch.ops.wcrt import scaled_inverse_tables
 
 P = get_params("tiny")
@@ -300,6 +301,90 @@ def _u8_gemm(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     256, exact while a sum stays below 2^53 (every sum here is checked
     below 2^31 by _fold)."""
     return (a @ b).astype(np.int64)
+
+
+# -- K1 / K10a's X-NTT route: csrc/xntt_stage.cu -------------------------------
+
+@pytest.mark.parametrize("side,k,xntt", [
+    ("right", 8, True), ("right", 64, True), ("right", XNTT_MAX_K, True),
+    ("right", XNTT_MAX_K + 1, False), ("right", 256, False),
+    ("right", 512, False), ("left", 64, False), ("batched_left", 64, False)])
+def test_xntt_route_rule(side, k, xntt):
+    """Stage.kernel's route, read from the table's shape alone: side 'right'
+    at a contraction of at most XNTT_MAX_K terms (the X-NTT at n = 64, the
+    gl2 ring's 128) launches csrc/xntt_stage.cu under stage_x / stage_tw_x;
+    the left sides and the longer contractions (the dist NTT's 256-point
+    stages, the four-step route's 256 and 512) csrc/stage.cu under their own
+    keys.  K3's renamed Stage (side 'left') keeps its keys."""
+    assert takes_xntt(side, k) is xntt
+    st = Stage(np.zeros((1, 8, k), dtype=np.uint64), MIXED[:1], side, "cpu")
+    want = {("right", True): ("stage_x", "stage_tw_x"),
+            ("right", False): ("stage", "stage_tw"),
+            ("batched_left", False): ("stage", "stage_tw_batched"),
+            ("left", False): ("stage",)}[side, xntt]
+    assert tuple(st.launch_key(tw) for tw in (False, True)[:len(want)]) == want
+    k3 = Stage(np.zeros((1, 8, k), dtype=np.uint64), MIXED[:1], side, "cpu",
+               keys=("inv_compose_stage", "inv_compose_split"))
+    assert k3.launch_key(False) == ("stage_x" if xntt else "inv_compose_stage")
+
+
+def _fold_short(diags) -> tuple:
+    """csrc/xntt_stage.cu's fold_short: plane sums below 2^26, the first
+    five summed in one word (< 2^59), planes 5 and 6 as b 2^40."""
+    a = [dj.astype(np.uint64) for dj in diags]
+    assert all(x.max() < 1 << 26 for x in a), "a plane sum past 2^26"
+    s = a[0].copy()
+    for j in range(1, min(len(a), 5)):
+        s = s + (a[j] << np.uint64(8 * j))
+    if len(a) <= 5:
+        return np.zeros_like(s), s
+    b = a[5] + (a[6] << np.uint64(8) if len(a) > 6 else np.uint64(0))
+    t = b << np.uint64(40)
+    with np.errstate(over="ignore"):
+        lo = s + t
+    return (b >> np.uint64(24)) + (lo < t), lo
+
+
+def _redc_2q(hi, lo, q: int) -> np.ndarray:
+    """csrc/xntt_stage.cu's redc_2q: mont_redc without its last
+    subtraction, a value below 2 q."""
+    qinv_neg = np.uint64((-pow(q, -1, 1 << 64)) % (1 << 64))
+    with np.errstate(over="ignore"):
+        m = lo * qinv_neg
+        t = hi + _umulhi(m, np.full_like(m, np.uint64(q))) + (lo != 0)
+    assert (t < 2 * q).all()
+    return t
+
+
+# one modulus of each digit count 1..7 (2^8 - 5, 2^16 - 15, 2^24 - 3,
+# 2^32 - 5, and the ref chain's 35-, 45- and P basis's 55-bit limbs)
+XNTT_EPI_MODULI = (251, 65521, 16777213, 4294967291,
+                   get_params("ref").moduli[1], get_params("ref").moduli[0],
+                   REF_P_MODULI[0])
+
+
+@pytest.mark.parametrize("q", XNTT_EPI_MODULI)
+def test_xntt_epilogue_matches_general(q):
+    """The X-NTT kernel's epilogue arithmetic, transcribed: fold_short of
+    d plane sums below 2^26 (its longest contraction, 1,024 digit rows of
+    255^2, at every sum for the edge) is fold's 128-bit value; REDC without
+    its last subtraction, then the Montgomery product by the twiddle, is
+    the general kernel's canonical REDC then product, bit for bit, at
+    random and edge twiddles (0, 1, q - 1)."""
+    d = digit_count(q)
+    rng = np.random.default_rng(q % 1000)
+    top = 1024 * 255 ** 2
+    diags = [rng.integers(0, top + 1, size=4096) for _ in range(d)]
+    for dj in diags:
+        dj[:3] = top
+    hi, lo = _fold_short(diags)
+    want_hi, want_lo = _fold(diags)
+    np.testing.assert_array_equal(hi, want_hi)
+    np.testing.assert_array_equal(lo, want_lo)
+    tw = rng.integers(0, q, size=4096, dtype=np.uint64)
+    tw[:3] = [0, 1, q - 1]
+    np.testing.assert_array_equal(_mont_mul(_redc_2q(hi, lo, q), tw, q),
+                                  _mont_mul(_redc(hi, lo, q), tw, q))
 
 
 # -- K2's fused method, transcribed from csrc/ntt_mul_ntt.cu -------------------
@@ -1099,6 +1184,63 @@ def _launched_stage(key, st, fn):
     return out
 
 
+def _stage_checks(st, x, tw=None):
+    """Stage.kernel on the card launched once under its route's key, equal
+    to Stage.plain bit for bit; on the X-NTT route also to the general
+    kernel (Stage.general), its yardstick."""
+    got = _launched_stage(st.launch_key(tw is not None), st,
+                          lambda: st.kernel(x, tw))
+    want = st.plain(x, tw)
+    assert torch.equal(got.cpu(), want.cpu())
+    if takes_xntt(st.side, st.table.shape[2]):
+        assert torch.equal(st.general(x, tw).cpu(), want.cpu())
+
+
+# the X-NTT route (csrc/xntt_stage.cu) at the cells' shapes, [L, 32768, 64]
+# on mid's 4 Q limbs, mid's 10 QP limbs (six 28-bit P), ref's 11 Q, the
+# leveled chain's 13 level-1 QP and ref's 14 QP limbs; gl2's 128 points on
+# the 14 QP limbs (table K-tiles in the ring) and on 35-bit limbs (the
+# planes resident); a ragged R (79 x 64 rows) on the mixed widths with
+# every entry q - 1.  Twiddles: none, one row (as ctx._r2_tw), or every
+# row (a key or a ciphertext).
+XNTT_SHAPES = {"cell4": ("mid4", 64, 32768, "random"),
+               "cell10": ("mid10", 64, 32768, "random"),
+               "cell11": ("ref11", 64, 32768, "random"),
+               "cell13": ("lev13", 64, 32768, "random"),
+               "cell14": ("ref14", 64, 32768, "random"),
+               "gl2K128": ("ref14", 128, 32768, "random"),
+               "resK128": ("q35", 128, 8192, "random"),
+               "ragged": ("mixed", 64, 5056, "max")}
+
+
+def _xntt_moduli(name):
+    ref = get_params("ref")
+    return {"mid4": ref.moduli[:4],
+            "mid10": ref.moduli[:4] + generate_ntt_primes(6, 28, 64, 771),
+            "ref11": ref.moduli, "lev13": ref.moduli[:10] + REF_P_MODULI,
+            "ref14": ref.moduli + REF_P_MODULI, "q35": ref.moduli[1:6],
+            "mixed": MIXED}[name]
+
+
+def _xntt_case(cuda, shape, twiddle):
+    """(Stage, data, twiddle or None) of an XNTT_SHAPES case on the card."""
+    name, n, rows, fill = XNTT_SHAPES[shape]
+    moduli = _xntt_moduli(name)
+    q = torch.tensor(moduli, dtype=torch.int64, device=cuda).reshape(-1, 1, 1)
+    gen = torch.Generator(device=cuda).manual_seed(rows + n)
+
+    def draw(r):
+        if fill == "max":
+            return (q - 1).expand(-1, r, n).contiguous()
+        return torch.randint(0, 1 << 62, (len(moduli), r, n), generator=gen,
+                             device=cuda) % q
+
+    st = Stage(draw(n).cpu().numpy().view(np.uint64), moduli, "right", cuda)
+    tw = {"none": None, "row": lambda: draw(1),
+          "full": lambda: draw(rows)}[twiddle]
+    return st, draw(rows), (tw() if tw else None)
+
+
 # sides x K x fill on the mixed 35/40/45/55-bit limbs, 40 table rows and 200
 # data rows (neither a multiple of the block's 32 x 128); then contractions
 # past the s32 bound on the 55-bit prime
@@ -1106,7 +1248,8 @@ STAGE_CASES = (["tiny", "small"]
                + [f"{side}-K{k}-{fill}"
                   for side in ("left", "right", "batched_left")
                   for k in (64, 128, 256, 512) for fill in ("random", "max")]
-               + ["left-K4800-flush", "right-K4800-flush"])
+               + ["left-K4800-flush", "right-K4800-flush"]
+               + [f"xntt-{shape}" for shape in XNTT_SHAPES])
 
 
 @pytest.mark.cuda
@@ -1124,8 +1267,12 @@ def test_cuda_stage_matches_plain(cuda, case):
         for side, table, moduli, shape in cases:
             st = Stage(table, moduli, side, cuda)
             x = i64(residues(rng, moduli, shape)).to(cuda)
-            got = _launched_stage("stage", st, lambda: st(x))
-            assert torch.equal(got.cpu(), st.plain(x).cpu())
+            _stage_checks(st, x)
+        return
+    if case.startswith("xntt-"):
+        st, x, _ = _xntt_case(cuda, case[5:], "none")
+        assert st.launch_key(False) == "stage_x"
+        _stage_checks(st, x)
         return
     side, k, fill = case.split("-")
     if fill == "flush":
@@ -1134,9 +1281,7 @@ def test_cuda_stage_matches_plain(cuda, case):
     else:
         st, data = _stage_case(side, int(k[1:]), fill, seed=43, rows=200)
     st = Stage(u64(st.table), st.moduli, side, cuda)
-    x = data.to(cuda)
-    got = _launched_stage("stage", st, lambda: st(x))
-    assert torch.equal(got.cpu(), st.plain(x).cpu())
+    _stage_checks(st, data.to(cuda))
 
 
 @pytest.mark.cuda
@@ -1436,38 +1581,40 @@ def test_cuda_gemm2x2_digit_plane_cases(cuda, case):
                          + [f"{side}-K{k}-{fill}"
                             for side in ("right", "batched_left")
                             for k in (64, 128, 256, 512)
-                            for fill in ("random", "max")])
+                            for fill in ("random", "max")]
+                         + [f"xntt-{shape}-{tw}" for shape in XNTT_SHAPES
+                            for tw in ("row", "full")])
 def test_cuda_stage_twiddle_matches_plain(cuda, case):
     """K10a's twiddle form on the card: the PallasStage case, the 55-bit P
     prime with a one-row twiddle and rows that are not a multiple of the
-    tile, and the mixed 35/40/45/55-bit limbs at K = 64..512 with 200 rows
-    (twiddle rows 40 on side 'right')."""
+    tile, the mixed 35/40/45/55-bit limbs at K = 64..512 with 200 rows
+    (twiddle rows 40 on side 'right'), and the X-NTT route at the cells'
+    shapes with a one-row and a full twiddle; each under its route's key,
+    the X-NTT route also equal to the general kernel."""
+    if case.startswith("xntt-"):
+        shape, twiddle = case[5:].rsplit("-", 1)
+        st, d, t = _xntt_case(cuda, shape, twiddle)
+        assert st.launch_key(True) == "stage_tw_x"
+        _stage_checks(st, d, t)
+        return
     side = case.split("-")[0]
-    key = "stage_tw" if side == "right" else "stage_tw_batched"
     if case == side:
         qs, table, data, tw = _twiddle_case(side, 26)
         st = Stage(table, qs, side, cuda)
-        d, t = i64(data).to(cuda), i64(tw).to(cuda)
-        got = _launched_stage(key, st, lambda: st(d, twiddle_mont=t))
-        assert torch.equal(got.cpu(), st.plain(d, twiddle_mont=t).cpu())
+        _stage_checks(st, i64(data).to(cuda), i64(tw).to(cuda))
         if side == "right":
             rng = np.random.default_rng(27)
             wide = REF_P_MODULI[:1]
             st = Stage(residues(rng, wide, (64, 64)), wide, side, cuda)
-            d = i64(residues(rng, wide, (70, 64))).to(cuda)
-            t = i64(residues(rng, wide, (1, 64))).to(cuda)
-            got = _launched_stage(key, st, lambda: st(d, twiddle_mont=t))
-            assert torch.equal(got.cpu(), st.plain(d, twiddle_mont=t).cpu())
+            _stage_checks(st, i64(residues(rng, wide, (70, 64))).to(cuda),
+                          i64(residues(rng, wide, (1, 64))).to(cuda))
         return
     _, k, fill = case.split("-")
     st, data = _stage_case(side, int(k[1:]), fill, seed=44, rows=200)
     st = Stage(u64(st.table), st.moduli, side, cuda)
     rng = np.random.default_rng(45)
     tw_shape = (40, 40) if side == "right" else (40, 200)
-    t = i64(residues(rng, MIXED, tw_shape)).to(cuda)
-    d = data.to(cuda)
-    got = _launched_stage(key, st, lambda: st(d, twiddle_mont=t))
-    assert torch.equal(got.cpu(), st.plain(d, twiddle_mont=t).cpu())
+    _stage_checks(st, data.to(cuda), i64(residues(rng, MIXED, tw_shape)).to(cuda))
 
 
 @pytest.mark.cuda

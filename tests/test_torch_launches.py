@@ -57,7 +57,7 @@ def counted(monkeypatch):
         monkeypatch.setattr(owner, name, call)
 
     counting(Stage, "__call__", lambda self, data, twiddle_mont=None:
-             "stage" if twiddle_mont is None else "stage_tw")
+             self.launch_key(twiddle_mont is not None))
     counting(NttMulNtt, "__call__", lambda *a: "ntt_mul_ntt")
     counting(Gemm2x2, "__call__", lambda *a: "gemm2x2")
     counting(FourStepNTT, "forward", lambda *a: "four_step_fwd")

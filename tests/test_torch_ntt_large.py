@@ -502,7 +502,8 @@ def cuda():
 def test_cuda_unequal_split_takes_the_stage_route(cuda, lg):
     """On the card a plan with n1 != n2 runs K10a-tw once and K1 once
     forward, K1 twice inverse, never K5, and equals forward_plain /
-    inverse_plain bit for bit."""
+    inverse_plain bit for bit; a stage of at most 128 terms (n1 = 64 at
+    2^13, 128 at 2^15; n2 = 128 at 2^13) under the X-NTT route's keys."""
     import collections
 
     from matrix_fhe_tpu_torch.ops import _backend as be
@@ -516,7 +517,11 @@ def test_cuda_unequal_split_takes_the_stage_route(cuda, lg):
     back = ntt.inverse(spec)
     torch.cuda.synchronize()
     launched = collections.Counter(be.LAUNCHES) - before
-    assert dict(launched) == {"stage_tw": 1, "stage": 3}
+    st = ntt.stages.st
+    want = collections.Counter([st["t1f"].launch_key(True)] + [
+        st[k].launch_key(False) for k in ("t2f", "t2i", "t1i")])
+    assert launched == want
+    assert want["stage_tw" if lg == 17 else "stage_tw_x"] == 1
     assert torch.equal(spec, ntt.forward_plain(x))
     assert torch.equal(back, ntt.inverse_plain(spec))
     assert torch.equal(back, x)
