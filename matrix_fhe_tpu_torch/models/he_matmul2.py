@@ -27,6 +27,12 @@ division, is one launch of csrc/base_conv.cu (ops/rns_ext.py); the JAX
 package leaves them to XLA as plain jnp.  The key products and the sigma
 gathers are plain torch elementwise work, as in the JAX package (none of
 it is a Pallas kernel there); the transforms run kernel K1.
+
+Spans (utils/profiler.span): "gl2.tensor" around the tensor (the sigma
+gathers, TW and K7) and "gl2.relin" around the relinearize, with, under
+it, "gl2.relin_chunk" a QP chunk and in it "gl2.key_products" around each
+digit's two key products and their sums (index: the digit) and once more
+around the 2^-64 factor.
 """
 
 from __future__ import annotations
@@ -166,11 +172,12 @@ class HEMatmul2:
     # -- the tensor op -------------------------------------------------------
 
     def tensor_fn(self, ctX: Ciphertext2, ctY: Ciphertext2) -> GemmTensor2:
-        sy_b = self._ry_map(self._sigma(ctY.b))
-        sy_a = self._ry_map(self._sigma(ctY.a))
-        x_b = self._tw(ctX.b)
-        x_a = self._tw(ctX.a)
-        return GemmTensor2(*self._gemm2x2(sy_b, sy_a, x_b, x_a))
+        with span("gl2.tensor"):
+            sy_b = self._ry_map(self._sigma(ctY.b))
+            sy_a = self._ry_map(self._sigma(ctY.a))
+            x_b = self._tw(ctX.b)
+            x_a = self._tw(ctX.a)
+            return GemmTensor2(*self._gemm2x2(sy_b, sy_a, x_b, x_a))
 
     matmul_tensor = tensor_fn
 
@@ -404,31 +411,33 @@ class Gl2GemmRelin:
         digit's extension to the chunk's limbs, 2D NTT, key products summed
         over digits, 2D inverse NTT; then ModDown to Q.  The same bits as
         the JAX relinearize_fn for the same tt and keys."""
-        rc, ctx = self.rc, self.ctx
-        Lqp = len(rc.qp_moduli)
-        chunks = self._qp_chunks()
-        outs = []
-        for e_hi, b_keys, a_keys in ((tt.e10, ks.b1, ks.a1),
-                                     (tt.e11, ks.b2, ks.a2)):
-            wc = self._wt_q.inverse(e_hi)
-            src = [wc[g[0]:g[-1] + 1] for g in rc.groups]   # consecutive
-            shape = (Lqp,) + tuple(e_hi.shape[1:])
-            k0 = torch.empty(shape, dtype=I64, device=e_hi.device)
-            k1 = torch.empty(shape, dtype=I64, device=e_hi.device)
-            for lo, hi in chunks:
-                k0[lo:hi], k1[lo:hi] = self._relin_chunk(
-                    lo, hi, src, [b[lo:hi] for b in b_keys],
-                    [a[lo:hi] for a in a_keys])
-            del wc, src
-            outs.append(self._wt_q.forward(rc._mod_down(k0)))
-            del k0
-            outs.append(self._wt_q.forward(rc._mod_down(k1)))
-            del k1
-        u0, u1, v0, v1 = outs
-        q = ctx._q4
-        b2d = mm.add_mod(tt.e00, mm.add_mod(u0, v0, q), q)
-        a2d = mm.add_mod(tt.e01, mm.add_mod(u1, v1, q), q)
-        return Ciphertext2(b=self.hm.repack_fn(b2d), a=self.hm.repack_fn(a2d))
+        with span("gl2.relin"):
+            rc, ctx = self.rc, self.ctx
+            Lqp = len(rc.qp_moduli)
+            chunks = self._qp_chunks()
+            outs = []
+            for e_hi, b_keys, a_keys in ((tt.e10, ks.b1, ks.a1),
+                                         (tt.e11, ks.b2, ks.a2)):
+                wc = self._wt_q.inverse(e_hi)
+                src = [wc[g[0]:g[-1] + 1] for g in rc.groups]  # consecutive
+                shape = (Lqp,) + tuple(e_hi.shape[1:])
+                k0 = torch.empty(shape, dtype=I64, device=e_hi.device)
+                k1 = torch.empty(shape, dtype=I64, device=e_hi.device)
+                for lo, hi in chunks:
+                    k0[lo:hi], k1[lo:hi] = self._relin_chunk(
+                        lo, hi, src, [b[lo:hi] for b in b_keys],
+                        [a[lo:hi] for a in a_keys])
+                del wc, src
+                outs.append(self._wt_q.forward(rc._mod_down(k0)))
+                del k0
+                outs.append(self._wt_q.forward(rc._mod_down(k1)))
+                del k1
+            u0, u1, v0, v1 = outs
+            q = ctx._q4
+            b2d = mm.add_mod(tt.e00, mm.add_mod(u0, v0, q), q)
+            a2d = mm.add_mod(tt.e01, mm.add_mod(u1, v1, q), q)
+            return Ciphertext2(b=self.hm.repack_fn(b2d),
+                               a=self.hm.repack_fn(a2d))
 
     def _relin_chunk(self, lo, hi, src, b_keys, a_keys):
         """All digits' key products for QP limbs lo:hi, back to
@@ -441,17 +450,21 @@ class Gl2GemmRelin:
                 digit = rc._extenders[i].extend(x, dst_slice=(lo, hi))
                 hat = self._ntt2d(wt.forward(digit), xntt)
                 del digit
-                tb = mm.mul_mod(hat, b_keys[i], q)
-                u0 = tb if u0 is None else mm.add_mod(u0, tb, q)
-                del tb
-                ta = mm.mul_mod(hat, a_keys[i], q)
-                u1 = ta if u1 is None else mm.add_mod(u1, ta, q)
-                del ta, hat
+                with span("gl2.key_products", i):
+                    tb = mm.mul_mod(hat, b_keys[i], q)
+                    u0 = tb if u0 is None else mm.add_mod(u0, tb, q)
+                    del tb
+                    ta = mm.mul_mod(hat, a_keys[i], q)
+                    u1 = ta if u1 is None else mm.add_mod(u1, ta, q)
+                    del ta, hat
             # the keys are in storage form: one 2^-64 for the sums of
             # products
             r_inv = mm.moduli_col(self._r_inv[lo:hi], 3, q.device)
-            return (wt.inverse(self._intt2d(mm.mul_mod(u0, r_inv, q), xntt)),
-                    wt.inverse(self._intt2d(mm.mul_mod(u1, r_inv, q), xntt)))
+            with span("gl2.key_products"):
+                u0 = mm.mul_mod(u0, r_inv, q)
+                u1 = mm.mul_mod(u1, r_inv, q)
+            return (wt.inverse(self._intt2d(u0, xntt)),
+                    wt.inverse(self._intt2d(u1, xntt)))
 
     # the JAX package's limb-chunked relinearization gives its fused
     # relinearize_fn's bits: the port's one route (chunked) serves under both
