@@ -32,9 +32,12 @@ and read just after:
   4. the gl2 ciphertext GEMM at ref as examples/matmul_gl2.py (Gl2Context,
      HEMatmul2, Gl2GemmRelin with the preset's P basis, dnum = 4): keygen,
      switch keys, encode, encrypt, tensor (K7), relinearize, decrypt and the
-     Delta^2 decode (K1, K2 at 2n = 128, K4), error < 2 base_err + 0.1
-     where base_err is the two-sided opening's; phase times and memory;
-     then a tiny gl2 GEMM on the card against the CPU plain path; then
+     Delta^2 decode (K1, K2 at 2n = 128, K4, the key products
+     gl2_key_products), error < 2 base_err + 0.1 where base_err is the
+     two-sided opening's; phase times and memory; gl2_key_products
+     against its plain twin at [14, 512, 128, 128] (a first digit and a
+     later one, in place); then a tiny gl2 GEMM on the card against the
+     CPU plain path; then
      Gl2Conj at ref on the same context, P basis and secret key (its key,
      encrypt, conjugate, decrypt, decode, counted apart: K1, K10a's twiddle
      form, K2), max |dec - conj(X)| < 1e-4, keygen and apply times, a
@@ -116,7 +119,8 @@ Karatsuba method and K12's s8 dots at the int8 tensor-core rate of 1,979
 TOP/s; K5's Shoup products at the IMADs a product of its register
 kernel's SASS, per word width, its index and address IMADs left out, and
 base_conv's at an estimated 10 IMADs a product, crt_compose's at 10 a
-Shoup product and 7 a word of M_l t_l, at the card's IMAD rate
+Shoup product and 7 a word of M_l t_l, gl2_key_products' at 14 a
+Montgomery product, at the card's IMAD rate
 of 64 a clock on each SM) and, where one PyTorch call computes the same
 function, that call's time (K11's copy: Tensor.copy_ on
 the same buffers, in turns).  For every row a [bound] line logs the byte
@@ -750,8 +754,8 @@ def gl2_path():
     standard ciphertext out, on 512 packed 64x64 lanes; then K7, K2 at
     2n = 128, K1 over the QP basis and K4 on the encode's inverse tables
     against their plain versions at the path's shapes (outside the counted
-    run), and a tiny gl2 GEMM on the card against the CPU.  Returns (rows,
-    summary)."""
+    run), gl2_key_products against its plain twin, and a tiny gl2 GEMM
+    on the card against the CPU.  Returns (rows, summary)."""
     from matrix_fhe_tpu_torch import Gl2Context, Gl2GemmRelin, HEMatmul2
     from matrix_fhe_tpu_torch.config import get_params
     from matrix_fhe_tpu_torch.ops import _backend as be
@@ -869,6 +873,7 @@ def gl2_path():
     d_x = d_w.reshape(len(rc.qp_moduli), W * m, m)
     rows.append(check_stage(f"QP X-NTT, {m} points", fwd_x, d_x))
     del d_w, d_x
+    rows += gl2_key_products_rows(rc.qp_moduli, (W, m, m), gen)
     # K4 on the encode's inverse tables (Encoder.idft2_exact and
     # WTransform.dft_inverse_pair) at [W, n, n]
     for label, fp, cols in (
@@ -925,6 +930,62 @@ def gl2_path():
     summary.update({f"ref_gl2_{k}_ms": v for k, v in phases.items()})
     summary.update(conj_summary)
     return rows, summary, launches, conj_launches
+
+
+# IMAD-class instructions of one Montgomery product a b 2^-64 mod q (the
+# 128-bit a b at 4 + 3, m = lo (-q^-1) at 3, the high word of m q at 4)
+MONT_IMADS = 14
+
+
+def gl2_key_products_rows(moduli, frame, gen) -> list:
+    """gl2_key_products against its plain twin (Gl2GemmRelin's CPU route,
+    on the card) at the relinearize's shape [Lqp, *frame], hat as
+    Gl2GemmRelin._ntt2d leaves it (transposed in its last two axes): the
+    first digit (writes u0 and u1: 5 planes) and a later one (reads and
+    writes them in place: 7 planes; the plain time is the twin's digit,
+    two mul_mod and two add_mod in storage form).  Rows keyed
+    "gl2_key_products"."""
+    from matrix_fhe_tpu_torch.models.he_matmul2 import Gl2GemmRelin as G
+    from matrix_fhe_tpu_torch.ops import modmath as mm
+    from matrix_fhe_tpu_torch.ops.key_products import KeyProducts
+
+    q = mm.moduli_col(moduli, 3, "cuda")
+    r_inv = mm.moduli_col([pow(1 << 64, -1, x) for x in moduli], 3, "cuda")
+    kp = KeyProducts(moduli, "cuda")
+    hat = random_residues(moduli, frame, gen).transpose(-1, -2)
+    kb, ka = (mm.to_mont(random_residues(moduli, frame, gen), moduli)
+              for _ in range(2))
+    dims = ", ".join(map(str, hat.shape))
+    work = {"imad": 2 * kb.numel() * MONT_IMADS}
+    first = check_kernel(
+        f"gl2_key_products (first digit, [{dims}], hat transposed)",
+        "gl2_key_products", "matrix_fhe_tpu_torch/csrc/gl2_key_products.cu",
+        "none: the JAX package's key products are plain jnp",
+        lambda: kp(hat, kb, ka),
+        lambda: G._from_storage(*G._key_products_plain(
+            hat, kb, ka, None, None, q), q, r_inv),
+        [hat, kb, ka], work)
+    # the same digit summed again into its own products: 2 u mod q
+    u = kp(hat, kb, ka)
+    acc = [t.clone() for t in u]
+    kp(hat, kb, ka, *acc)
+    torch.cuda.synchronize()
+    err = max_abs_diff(tuple(acc), tuple(mm.add_mod(t, t, q) for t in u))
+    if err != 0:
+        raise AssertionError("gl2_key_products' in-place sum differs from "
+                             "its plain version")
+    ms = cuda_ms(lambda: kp(hat, kb, ka, *acc), 5)
+    plain_ms = cuda_ms(lambda: G._key_products_plain(hat, kb, ka, *u, q), 2)
+    log(f"[kernel] gl2_key_products (later digit, [{dims}]): max_abs_err=0 "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    later = {"name": f"gl2_key_products (later digit, [{dims}], hat "
+                     f"transposed, in place)",
+             "key": "gl2_key_products", "route": "cuda",
+             "source": first["source"], "replaces": first["replaces"],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "library_ms": None, "bytes": nbytes([hat, kb, ka]) + 2 * nbytes(u),
+             "work": work}
+    return [first, later]
 
 
 # IMAD-class instructions of one 64-bit Shoup product (x w and the high

@@ -24,15 +24,19 @@ most 1 GiB, else ~512 MiB chunks, aligned to the Q|P boundary) or
 `chunk_limbs` limbs per chunk.  It never modifies its arguments.  Each
 digit's basis extension to a chunk's limbs, and each ModDown with its
 division, is one launch of csrc/base_conv.cu (ops/rns_ext.py); the JAX
-package leaves them to XLA as plain jnp.  The key products and the sigma
+package leaves them to XLA as plain jnp.  So are each digit's two key
+products with their sums: on a CUDA tensor one launch of
+csrc/gl2_key_products.cu (ops/key_products.py), whose REDC takes the keys'
+storage factor 2^64 off each product; on a CPU tensor the plain twin,
+_key_products_plain, with one 2^-64 factor for the sums.  The sigma
 gathers are plain torch elementwise work, as in the JAX package (none of
 it is a Pallas kernel there); the transforms run kernel K1.
 
 Spans (utils/profiler.span): "gl2.tensor" around the tensor (the sigma
 gathers, TW and K7) and "gl2.relin" around the relinearize, with, under
 it, "gl2.relin_chunk" a QP chunk and in it "gl2.key_products" around each
-digit's two key products and their sums (index: the digit) and once more
-around the 2^-64 factor.
+digit's two key products and their sums (index: the digit) and, on the
+CPU route, once more around the 2^-64 factor.
 """
 
 from __future__ import annotations
@@ -44,8 +48,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import _backend as be
 from ..ops import modmath as mm
 from ..ops.cgemm import Gemm2x2
+from ..ops.key_products import KeyProducts
 from ..ops.ntt import XNTT
 from ..ops.wcrt import WTransform
 from ..tables import build_tables
@@ -291,7 +297,9 @@ class Gl2GemmRelin:
         self._wt_map = wt_map
         self._wt_q = self._mapped(hm.ctx.wt)
         self._chunk_cache = {}
-        # 2^-64 mod q: the key products leave a factor 2^64 (storage form)
+        self._products = {}
+        # 2^-64 mod q: the plain key products leave a factor 2^64 (storage
+        # form)
         self._r_inv = [pow(1 << 64, -1, q) for q in self.rc.qp_moduli]
 
     def _mapped(self, wt):
@@ -441,9 +449,16 @@ class Gl2GemmRelin:
 
     def _relin_chunk(self, lo, hi, src, b_keys, a_keys):
         """All digits' key products for QP limbs lo:hi, back to
-        (W-coeff, X-coeff): the chunk rows of the two accumulators."""
+        (W-coeff, X-coeff): the chunk rows of the two accumulators.  On the
+        card each digit's two products and their sums are one launch of
+        csrc/gl2_key_products.cu (KeyProducts), in place; the 2^-64 of the
+        keys' storage form rides its REDC.  On the CPU the plain twin
+        sums in storage form and takes one 2^-64 off at the end."""
         rc = self.rc
         _, xntt, wt, q = self._chunk_ctx(lo, hi)
+        on_card = be.on_device(q)
+        products = (self._key_products(lo, hi, q.device) if on_card
+                    else lambda *args: self._key_products_plain(*args, q))
         u0 = u1 = None
         with span("gl2.relin_chunk"):
             for i, x in enumerate(src):
@@ -451,20 +466,38 @@ class Gl2GemmRelin:
                 hat = self._ntt2d(wt.forward(digit), xntt)
                 del digit
                 with span("gl2.key_products", i):
-                    tb = mm.mul_mod(hat, b_keys[i], q)
-                    u0 = tb if u0 is None else mm.add_mod(u0, tb, q)
-                    del tb
-                    ta = mm.mul_mod(hat, a_keys[i], q)
-                    u1 = ta if u1 is None else mm.add_mod(u1, ta, q)
-                    del ta, hat
-            # the keys are in storage form: one 2^-64 for the sums of
-            # products
-            r_inv = mm.moduli_col(self._r_inv[lo:hi], 3, q.device)
-            with span("gl2.key_products"):
-                u0 = mm.mul_mod(u0, r_inv, q)
-                u1 = mm.mul_mod(u1, r_inv, q)
+                    u0, u1 = products(hat, b_keys[i], a_keys[i], u0, u1)
+                del hat
+            if not on_card:
+                r_inv = mm.moduli_col(self._r_inv[lo:hi], 3, q.device)
+                with span("gl2.key_products"):
+                    u0, u1 = self._from_storage(u0, u1, q, r_inv)
             return (wt.inverse(self._intt2d(u0, xntt)),
                     wt.inverse(self._intt2d(u1, xntt)))
+
+    def _key_products(self, lo, hi, device) -> KeyProducts:
+        """The card's key products over QP limbs lo:hi."""
+        if (lo, hi) not in self._products:
+            self._products[(lo, hi)] = KeyProducts(self.rc.qp_moduli[lo:hi],
+                                                   device)
+        return self._products[(lo, hi)]
+
+    @staticmethod
+    def _key_products_plain(hat, kb, ka, u0, u1, q):
+        """One digit's two key products summed into (u0, u1) (None on the
+        first digit) by mm.mul_mod and mm.add_mod: KeyProducts' plain twin,
+        whose sums keep the keys' storage factor 2^64 (_from_storage)."""
+        tb = mm.mul_mod(hat, kb, q)
+        u0 = tb if u0 is None else mm.add_mod(u0, tb, q)
+        del tb
+        ta = mm.mul_mod(hat, ka, q)
+        u1 = ta if u1 is None else mm.add_mod(u1, ta, q)
+        return u0, u1
+
+    @staticmethod
+    def _from_storage(u0, u1, q, r_inv):
+        """The plain twin's sums times r_inv = 2^-64 mod q."""
+        return mm.mul_mod(u0, r_inv, q), mm.mul_mod(u1, r_inv, q)
 
     # the JAX package's limb-chunked relinearization gives its fused
     # relinearize_fn's bits: the port's one route (chunked) serves under both

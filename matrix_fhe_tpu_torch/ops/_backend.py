@@ -31,7 +31,7 @@ BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("stage.cu", "xntt_stage.cu", "ntt_mul_ntt.cu", "inv_compose.cu",
            "fp_cmatmul.cu", "four_step_ntt.cu", "cgemm.cu", "gemm2x2.cu",
            "micro_vpu.cu", "micro_coissue.cu", "base_conv.cu",
-           "crt_compose.cu")
+           "crt_compose.cu", "gl2_key_products.cu")
 HEADERS = ("modarith.cuh", "wgmma8.cuh")
 LIBRARY = os.path.join(BUILD, "libmfhe_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,6 +64,7 @@ _SIGNATURES = {
                    _P],
     "mf_base_conv": [_P, _P, _P, _P, _P, _I, _I, _LL, _P],
     "mf_crt_compose": [_P, _P, _P, _I, _I, _LL, _D, _P],
+    "mf_gl2_key_products": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mf_ntt_mul_ntt_smem": [_I],
     "mf_stage_layout": [_I, _I, _I, ctypes.POINTER(_I)],
     "mf_fp_layout": [_I, _I, ctypes.POINTER(_I)],

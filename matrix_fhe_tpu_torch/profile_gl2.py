@@ -16,9 +16,9 @@ phase it prints:
     both) and hand-written launches of each, for the relinearize the
     whole call (gl2.relin), the chunks of all digits' key products
     (gl2.relin_chunk), the key products themselves (gl2.key_products,
-    each digit's pair and the 2^-64 factor), each digit's extension to a
-    chunk's limbs (rns.extend, one base_conv launch) and ModDown
-    (ks.mod_down, with its conversion and division rns.extend).
+    each digit's pair: one gl2_key_products launch), each digit's
+    extension to a chunk's limbs (rns.extend, one base_conv launch) and
+    ModDown (ks.mod_down, with its conversion and division rns.extend).
 
 Needs a CUDA device and, at ref, about 35 GB of device memory.
 """
