@@ -43,6 +43,15 @@ and read just after:
      form, K2), max |dec - conj(X)| < 1e-4, keygen and apply times, a
      tiny conjugation on the card against the CPU, and K10a's twiddle form
      at the conjugation's 128-point digit-step shape;
+ 4b. two chained gl2 GEMMs on the gl2 leveled tower (Gl2Chain: B = Q^H A,
+     the gl2 rescale, G = B'^H B' at level 1 with its own keys): a tiny
+     chain on the card against the CPU plain path, bit for bit a step;
+     at ref, gl2_key_products at level 1's 13-limb QP shape against its
+     plain twin (first digit and in place, bit for bit); then one ref
+     chained request under a profile, its launches by span
+     (gl2_key_products 16 under the two "gl2.step", base_conv 2 under
+     "gl2.rescale"), max |G - (Q^H A)^H (Q^H A)| against the first
+     product's 1e-4 carried through the second, and its time;
   5. key switching and the leveled chain at ref (LeveledChain, the preset's
      P, dnum = 4): examples/relinearize.py (keygen, two encrypts,
      multiply_relinearize, noise < 2^25), examples/leveled.py's depth-2
@@ -930,6 +939,126 @@ def gl2_path():
     summary.update({f"ref_gl2_{k}_ms": v for k, v in phases.items()})
     summary.update(conj_summary)
     return rows, summary, launches, conj_launches
+
+
+def gl2_chain_path():
+    """Path 4b: the gl2 leveled tower.  A tiny chained request (B = Q^H A,
+    B' = rescale(B), G = B'^H B') on the card with the CPU's keys and
+    ciphertexts == the CPU plain path, bit for bit a step; then one ref
+    chained request under a profile: the launches of its spans (16
+    gl2_key_products under the two "gl2.step", 2 base_conv under
+    "gl2.rescale"), G against the messages' Gram matrix, and the
+    request's time (median of 3, CUDA events).  Before the request,
+    gl2_key_products at level 1's [13, W, 2n, 2n] against its plain twin
+    (gl2_key_products_rows).  Returns (rows, summary, launches of the ref
+    request)."""
+    from matrix_fhe_tpu_torch import Gl2Chain
+    from matrix_fhe_tpu_torch.config import get_params
+    from matrix_fhe_tpu_torch.models.leveled import LeveledCt
+    from matrix_fhe_tpu_torch.ops import _backend as be
+    from matrix_fhe_tpu_torch.utils import profiler
+
+    def chain(ch, a, q):
+        b = ch.matmul(a, q)
+        b1 = ch.rescale(b)
+        return b, b1, ch.matmul(b1, b1)
+
+    pt = get_params("tiny")
+    g = torch.Generator().manual_seed(26)
+    sign = torch.randint(0, 3, (pt.phi, 2 * pt.n), generator=g) - 1
+    cpu = Gl2Chain(pt, seed=26, device="cpu", secret=sign)
+    card = Gl2Chain(pt, seed=26, device="cuda", secret=sign)
+    for level in (0, 1):
+        card.set_gemm_keys(level, cpu.gemm_keys(level))
+    r2 = np.random.default_rng(26)
+    cts = [cpu.encrypt(*(torch.from_numpy(r2.uniform(-1, 1, (
+        pt.phi, pt.n, pt.n))) for _ in range(2)), g) for _ in range(2)]
+    want = chain(cpu, *cts)
+    got = chain(card, *(LeveledCt(type(c.ct)(*(t.cuda() for t in c.ct)),
+                                  c.level, c.scale) for c in cts))
+    for step, (x, y) in zip(("B", "B'", "G"), zip(got, want)):
+        if (x.level, x.scale) != (y.level, y.scale) or not all(
+                torch.equal(u.cpu(), v) for u, v in zip(x.ct, y.ct)):
+            raise AssertionError(f"tiny gl2 chain step {step} on the card "
+                                 "differs from the CPU path")
+    log("[check] tiny gl2 chain (GEMM, rescale, GEMM at level 1): card == "
+        "CPU plain path, bit for bit at each step")
+    del cpu, card, cts, want, got
+
+    p = get_params("ref")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ch = Gl2Chain(p, seed=26, device="cuda")
+    for level in (0, 1):
+        ch.gemm_keys(level)
+    torch.cuda.synchronize()
+    keys_s = time.perf_counter() - t0
+    key_bytes = sum(nbytes(part) for level in (0, 1)
+                    for part in ch.gemm_keys(level))
+    # the key products at level 1's QP basis (13 limbs, the last digit one
+    # limb), a shape only the chain gives them
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rows = gl2_key_products_rows(ch.gemm(1).rc.qp_moduli,
+                                 (p.phi, 2 * p.n, 2 * p.n), gen)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(26)
+    shape = (p.phi, p.n, p.n)
+    msgs = [rng.uniform(-1, 1, shape) + 1j * rng.uniform(-1, 1, shape)
+            for _ in range(2)]
+    a, q = (ch.encrypt(torch.from_numpy(m.real).cuda(),
+                       torch.from_numpy(m.imag).cuda(), gen) for m in msgs)
+    t0 = time.perf_counter()
+    chain(ch, a, q)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    be.reset_launches()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        _, _, gram = chain(ch, a, q)
+        torch.cuda.synchronize()
+    launches = dict(be.LAUNCHES)
+    by_span = {}
+    for rec in profiler.records():
+        if rec.name in ("gl2.step", "gl2.rescale"):
+            into = by_span.setdefault(rec.name, {})
+            for k, v in rec.launches.items():
+                into[k] = into.get(k, 0) + v
+    log(f"[gl2-chain] launches by span: {json.dumps(by_span)}; the "
+        f"request's launches: {launches}")
+    if by_span["gl2.step"].get("gl2_key_products") != 16 or \
+            by_span["gl2.rescale"].get("base_conv") != 2:
+        raise AssertionError(f"gl2 chain launches {by_span}, expected 16 "
+                             "gl2_key_products and 2 base_conv")
+    b_true = np.conj(np.swapaxes(msgs[1], -1, -2)) @ msgs[0]
+    g_true = np.conj(np.swapaxes(b_true, -1, -2)) @ b_true
+    re, im = ch.decrypt_decode(gram)
+    err = float(np.abs(re.cpu().numpy() + 1j * im.cpu().numpy()
+                       - g_true).max())
+    bound = 2 * p.n * float(np.abs(b_true).max()) * TOL
+    times = [cuda_ms(lambda: chain(ch, a, q), warmup=False)
+             for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[gl2-chain] ref: keys at levels 0 and 1 {key_bytes} B in "
+        f"{keys_s:.2f} s, first request {first_s:.2f} s, request median "
+        f"{statistics.median(times):.3f} ms (runs "
+        f"{', '.join(f'{t:.3f}' for t in times)}); "
+        f"max |G - (Q^H A)^H (Q^H A)| {err:.3e} against {bound:.3e}; "
+        f"max_memory_allocated {peak} B, {peak - held} B above what was "
+        "held before the path")
+    if not err < bound:
+        raise AssertionError(f"gl2 chain err {err} >= {bound}")
+    del ch, a, q, gram
+    torch.cuda.empty_cache()
+    for row in rows:
+        row["launches"] = launches.get(row.pop("key"), 0)
+    return rows, {"ref_gl2_chain_ms": statistics.median(times),
+            "ref_gl2_chain_err": err, "ref_gl2_chain_bound": bound,
+            "ref_gl2_chain_key_bytes": key_bytes,
+            "ref_gl2_chain_keys_s": keys_s,
+            "ref_gl2_chain_max_memory_allocated": peak}, launches
 
 
 # IMAD-class instructions of one Montgomery product a b 2^-64 mod q (the
@@ -2492,6 +2621,13 @@ def main() -> int:
     walls["4_gl2"] = time.perf_counter() - t_path
     walls["4_gl2_conj"] = gl2_summary["ref_conj_wall_s"]
 
+    # -- path 4b: two chained gl2 GEMMs on the gl2 leveled tower -----------
+    t_path = time.perf_counter()
+    chain_rows, chain_summary, chain_launches = gl2_chain_path()
+    rows += chain_rows
+    summary.update(chain_summary)
+    walls["4b_gl2_chain"] = time.perf_counter() - t_path
+
     # -- path 5: key switching and the leveled chain at ref (K10a) ----------
     t_path = time.perf_counter()
     ks_rows, ks_summary, ks_launches, off_path = leveled_path()
@@ -2544,6 +2680,7 @@ def main() -> int:
     # conjugation's 128) carries only theirs
     by_path = (("1_roundtrip", launches), ("3_matmul", mm_launches),
                ("4_gl2", gl2_launches), ("4_gl2_conj", conj_launches),
+               ("4b_gl2_chain", chain_launches),
                ("5_keyswitch", ks_launches), ("7_parallel", par_launches),
                ("8_entry_points", ep_launches), ("8_four_step", fs_launches))
     for key, prefix in (("ntt_mul_ntt", "ntt_mul_ntt"), ("stage", "stage (K1"),

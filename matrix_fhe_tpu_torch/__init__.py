@@ -23,8 +23,9 @@ bit by tests/test_torch_*.py.
     complex conjugation) and the large-N four-step NTT
     (ops/ntt_large.FourStepNTT).
   * Key switching: relinearized multiplication, rescale and Galois
-    rotations (models/keyswitch.py), and the leveled chain (LeveledChain)
-    that composes them at depth.
+    rotations (models/keyswitch.py), and the leveled chains that compose
+    them at depth: LeveledChain, and Gl2Chain, whose encrypted GEMM
+    products are rescaled and multiplied again on the gl2 ring.
   * parallel/: the sharded programs on torch.distributed, one process a
     rank (the coefficient-sharded four-step NTT, the dp x tp sharded
     roundtrip, the W-sharded key switch and gl2 GEMM), and
@@ -58,6 +59,7 @@ _LAZY = {
     "RelinContext": ".models.keyswitch",
     "LeveledChain": ".models.leveled",
     "LeveledCt": ".models.leveled",
+    "Gl2Chain": ".models.leveled2",
 }
 
 

@@ -76,6 +76,16 @@ class Gl2Context:
         p = self.params
         sign = torch.randint(0, 3, (p.phi, self.m), generator=generator,
                              dtype=I64, device=generator.device) - 1
+        return self.secret_key(sign)
+
+    def secret_key(self, sign: torch.Tensor) -> SecretKey2:
+        """The SecretKey2 of a ternary sign pattern [W, 2n] in {-1, 0, 1}
+        over this context's limbs: a pattern is limb-consistent, so the
+        key of a limb prefix is the prefix of the key."""
+        p = self.params
+        if tuple(sign.shape) != (p.phi, self.m) or \
+                bool((sign.abs() > 1).any()):
+            raise ValueError(f"sign must be ternary [{p.phi}, {self.m}]")
         sign = sign.to(torch.int8).to(self.device)
         s_res = self._ternary_residues(sign, p.moduli)
         s_ntt = self.xntt.forward(self.wt.forward(s_res))

@@ -604,9 +604,9 @@ _RESCALE_PARTS: "weakref.WeakKeyDictionary[HEContext, tuple]" = \
     weakref.WeakKeyDictionary()
 
 
-def _rescale_pipeline(ctx: HEContext):
+def _rescale_pipeline(ctx):
     """The Rescaler and the reduced chain's WTransform, built once per
-    context and dropped with it."""
+    context (an HEContext or a Gl2Context) and dropped with it."""
     if ctx not in _RESCALE_PARTS:
         p = ctx.params
         red = dataclasses.replace(p, name=p.name + "-resc",
@@ -617,10 +617,12 @@ def _rescale_pipeline(ctx: HEContext):
     return _RESCALE_PARTS[ctx]
 
 
-def rescale_ciphertext(ctx: HEContext, ct: Ciphertext,
-                       rs: Optional[Rescaler] = None) -> Ciphertext:
+def rescale_ciphertext(ctx, ct, rs: Optional[Rescaler] = None):
     """Drop the last modulus from a ciphertext, dividing by q_last in the
-    W-coeff domain.  Without `rs`, the context's cached Rescaler and
+    W-coeff domain.  Either ring: an HEContext with a Ciphertext, or a
+    Gl2Context with a Ciphertext2 (its W-CRT acts on the same limb-major
+    [L, W, ...] layout); the result is of the input's type.  Without `rs`,
+    the context's cached Rescaler and
     reduced-chain transform; with it, the reduced-chain transform through
     the full chain's tables (per-limb independence makes the zero-pad and
     slice exact), as the JAX package's explicit-Rescaler path."""
@@ -628,11 +630,11 @@ def rescale_ciphertext(ctx: HEContext, ct: Ciphertext,
         b_wc, a_wc = ctx.wt.inverse(ct.b), ctx.wt.inverse(ct.a)
         if rs is None:
             rs, wt_rest = _rescale_pipeline(ctx)
-            return Ciphertext(b=wt_rest.forward(rs.rescale_component(b_wc)),
-                              a=wt_rest.forward(rs.rescale_component(a_wc)))
+            return type(ct)(b=wt_rest.forward(rs.rescale_component(b_wc)),
+                            a=wt_rest.forward(rs.rescale_component(a_wc)))
         out = []
         for y in (b_wc, a_wc):
             padded = torch.cat([rs.rescale_component(y),
                                 torch.zeros_like(y[-1:])])
             out.append(ctx.wt.forward(padded)[:-1])
-        return Ciphertext(b=out[0], a=out[1])
+        return type(ct)(b=out[0], a=out[1])

@@ -47,6 +47,23 @@ def _fold(seed: int, tag: int) -> int:
     return (seed * 1_000_003 + tag) % (1 << 63)
 
 
+def fold_generator(seed: int, tag: int, device) -> torch.Generator:
+    """The generator of one use of a chain's seed, on `device`."""
+    return torch.Generator(device=device).manual_seed(_fold(seed, tag))
+
+
+def level_params(base: GLParams, level: int) -> GLParams:
+    """The parameter set of a chain's `level`: `base` with its last
+    `level` primes dropped (the chain of either ring)."""
+    depth = len(base.moduli) - 1
+    if not 0 <= level <= depth:
+        raise ValueError(f"level {level} outside chain [0, {depth}]")
+    if level == 0:
+        return base
+    return dataclasses.replace(base, name=f"{base.name}-lvl{level}",
+                               moduli=base.moduli[:len(base.moduli) - level])
+
+
 class LeveledChain:
     """The leveled context tower over one base parameter set, on one
     device."""
@@ -55,9 +72,10 @@ class LeveledChain:
                  p_moduli: Optional[Sequence[int]] = None, device="cuda",
                  secret: Optional[torch.Tensor] = None):
         if ring != "nega":
-            # gl2 leveling runs through Gl2Context / Gl2GemmRelin; the
-            # folded GL ring admits no key switching at all
-            raise ValueError("LeveledChain supports ring='nega'")
+            # gl2 leveling is Gl2Chain (models/leveled2.py); the folded GL
+            # ring admits no key switching at all
+            raise ValueError("LeveledChain supports ring='nega'; the gl2 "
+                             "ring's chain is Gl2Chain")
         self.base = params
         self.ring = ring
         self.device = resolve_device(device)
@@ -80,8 +98,7 @@ class LeveledChain:
         self._sk0 = None
 
     def _generator(self, tag: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(
-            _fold(self.seed, tag))
+        return fold_generator(self.seed, tag, self.device)
 
     # -- context tower --------------------------------------------------------
 
@@ -89,13 +106,7 @@ class LeveledChain:
         return len(self.base.moduli) - level
 
     def params_at(self, level: int) -> GLParams:
-        if not 0 <= level <= self.depth:
-            raise ValueError(f"level {level} outside chain [0, {self.depth}]")
-        if level == 0:
-            return self.base
-        return dataclasses.replace(
-            self.base, name=f"{self.base.name}-lvl{level}",
-            moduli=self.base.moduli[:self.limbs_at(level)])
+        return level_params(self.base, level)
 
     def ctx(self, level: int) -> HEContext:
         if level not in self._ctx:
