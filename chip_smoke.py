@@ -138,9 +138,10 @@ split pass are timed apart on [kernel] lines, and so is K2's function as
 two launches (K10a's twiddle form forward with s as the twiddle, then
 K1's inverse), the yardstick of its fusion.  K1's and K10a's rows on side
 'right' at a contraction of at most 128 terms (the X-NTT: launch keys
-stage_x, stage_tw_x, csrc/xntt_stage.cu) also hold the general
-stage_kernel to the same inputs and time it in turns with the route (its
-yardstick, general_ms).  The rows of K2, K1 and K10a's
+stage_x, stage_tw_x, csrc/xntt_stage.cu) and K1's rows on side 'left' at
+256 to 4,096 terms (the W-CRT over 512 lanes: launch key stage_w,
+csrc/wcrt_stage.cu) also hold the general stage_kernel to the same inputs
+and time it in turns with the route (its yardstick, general_ms).  The rows of K2, K1 and K10a's
 twiddle form carry their launches on every path (`launches_by_path`, the
 conjugation of path 4 as "4_gl2_conj"); K10a's twiddle-form rows carry only
 the path that runs their shape (path 5 at 64 points, the conjugation at
@@ -150,9 +151,9 @@ sum of the {"launches": ...} lines of its processes (for mid's rows, of
 the relinearize and leveled processes, which switch keys at mid, beside
 "5b_mid_keyswitch").  The SASS check fails if
 a kernel whose products run on the tensor cores (K1, K1 / K10a's X-NTT
-kernel, K2, K4, K6, K7, and K12's mxu, both and dep instantiations) has no
-wgmma instruction, or if the X-NTT kernel has a stack frame or local
-memory (a spill: cuobjdump -res-usage).
+kernel, K1's W-CRT kernel, K2, K4, K6, K7, and K12's mxu, both and dep
+instantiations) has no wgmma instruction, or if the X-NTT or the W-CRT
+kernel has a stack frame or local memory (a spill: cuobjdump -res-usage).
 Fails (nonzero exit, no result line) without a CUDA device, on a build or
 launch error, on any disagreement, or when a path's check fails.
 
@@ -259,36 +260,43 @@ def stage_work(stage, data) -> dict:
                          (data.numel() // K) * W)["int8"]}
 
 
+# the routes of Stage.kernel: (label in a row's name, source)
+STAGE_ROUTES = {"x": ("X-NTT kernel", "xntt_stage.cu"),
+                "w": ("W-CRT kernel", "wcrt_stage.cu"),
+                "general": ("", "stage.cu")}
+
+
 def check_stage(label, stage, data, tw=None, reps=5):
     """A K1 / K10a row through Stage.kernel under its route's launch key.
-    On the X-NTT route (side 'right', K <= 128: csrc/xntt_stage.cu) the
+    On the X-NTT route (side 'right', K <= 128: csrc/xntt_stage.cu) and the
+    W-CRT route (side 'left', 256 <= K <= 4096: csrc/wcrt_stage.cu) the
     general stage_kernel (Stage.general, through mf_stage) runs the same
     inputs as the yardstick: equal bit for bit, and timed in turns with the
-    route (X-NTT, general, general, X-NTT) on a [kernel] line beside the
-    byte bound; its mean is the row's general_ms."""
-    from matrix_fhe_tpu_torch.ops.cuda_ntt import takes_xntt
+    route (route, general, general, route) on a [kernel] line beside the
+    byte and int8 bounds; its mean is the row's general_ms."""
     key = stage.launch_key(tw is not None)
-    xntt = takes_xntt(stage.side, stage.table.shape[2])
+    route = stage.route()
+    kind, source = STAGE_ROUTES[route]
     name = (f"{key} ({'K10a' if tw is not None else 'K1'}"
-            f"{' X-NTT kernel' if xntt else ''}, {label})")
+            f"{' ' + kind if kind else ''}, {label})")
     inputs = [stage.table, data] + ([] if tw is None else [tw])
     row = check_kernel(
-        name, key, "matrix_fhe_tpu_torch/csrc/"
-        + ("xntt_stage.cu" if xntt else "stage.cu"),
+        name, key, "matrix_fhe_tpu_torch/csrc/" + source,
         "matrix_fhe_tpu/ops/pallas_ntt.py:460" if tw is not None
         else "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
         lambda: stage.kernel(data, tw), lambda: stage.plain(data, tw),
         inputs, stage_work(stage, data), reps=reps)
-    if xntt:
+    if route != "general":
         if not torch.equal(stage.general(data, tw), stage.kernel(data, tw)):
-            raise AssertionError(f"{name}: the X-NTT kernel differs from "
-                                 "the general stage_kernel")
+            raise AssertionError(f"{name}: the {kind} differs from the "
+                                 "general stage_kernel")
         ts = [cuda_ms(lambda: f(data, tw), reps) for f in
               (stage.kernel, stage.general, stage.general, stage.kernel)]
         row["general_ms"] = (ts[1] + ts[2]) / 2
-        log(f"[kernel] {name}: X-NTT kernel {ts[0]:.3f}, {ts[3]:.3f} ms; "
+        log(f"[kernel] {name}: {kind} {ts[0]:.3f}, {ts[3]:.3f} ms; "
             f"general stage_kernel {ts[1]:.3f}, {ts[2]:.3f} ms (in turns); "
-            f"bytes {1e3 * row['bytes'] / HBM_BYTES_PER_S:.3f} ms")
+            f"bytes {1e3 * row['bytes'] / HBM_BYTES_PER_S:.3f} ms, int8 "
+            f"{1e3 * row['work']['int8'] / INT8_OPS_PER_S:.3f} ms")
     return row
 
 
@@ -489,7 +497,7 @@ def k5_imads_per_product(funcs, r: int = 16) -> dict:
 def tensor_core_ops(funcs, kernel: str) -> int:
     """Warpgroup tensor-core instructions (IGMMA) in a kernel whose
     products run on the int8 tensor cores (K1's stage_kernel, K1 / K10a's
-    xntt_stage_kernel, K2's
+    xntt_stage_kernel, K1's wcrt_stage_kernel, K2's
     ntt_mul_ntt_kernel, K4's fp_cmatmul_kernel, K6's cgemm_kernel, K7's
     gemm2x2_kernel, K12's coissue_kernel<1, 3, 4>: a name's part as
     cuobjdump mangles it, "coissue_kernelILi1E"), summed over the
@@ -515,12 +523,7 @@ def kernel_checks(ctx, gen):
     rows = []
     L = len(p.moduli)
     d_w = random_residues(p.moduli, (W, n * n), gen)
-    rows.append(check_kernel(
-        "stage (K1, W-CRT forward)", "stage",
-        "matrix_fhe_tpu_torch/csrc/stage.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
-        lambda: wt._fwd.kernel(d_w), lambda: wt._fwd.plain(d_w),
-        [wt._fwd.table, d_w], stage_work(wt._fwd, d_w)))
+    rows.append(check_stage("W-CRT forward", wt._fwd, d_w))
     d_x = random_residues(p.moduli, (W, n), gen)
     rows.append(check_stage("X-NTT", xntt._fwd, d_x))
     a_rows = random_residues(p.moduli, (W * n, n), gen)
@@ -873,12 +876,9 @@ def gl2_path():
     # pass of the 2D X-NTT
     d_w = random_residues(rc.qp_moduli, (W, m * m), gen)
     fwd_w, fwd_x = rc.wt_qp._fwd, rc.xntt_qp._fwd
-    rows.append(check_kernel(
-        f"stage (K1, QP W-CRT forward, {len(rc.qp_moduli)} limbs)", "stage",
-        "matrix_fhe_tpu_torch/csrc/stage.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
-        lambda: fwd_w.kernel(d_w), lambda: fwd_w.plain(d_w),
-        [fwd_w.table, d_w], stage_work(fwd_w, d_w)))
+    rows.append(check_stage(
+        f"QP W-CRT forward, {len(rc.qp_moduli)} limbs, "
+        f"{list(d_w.shape)}", fwd_w, d_w))
     d_x = d_w.reshape(len(rc.qp_moduli), W * m, m)
     rows.append(check_stage(f"QP X-NTT, {m} points", fwd_x, d_x))
     del d_w, d_x
@@ -1402,13 +1402,9 @@ def leveled_path():
     rows += bc_rows
     del d, tw
     d = random_residues(qp, (W, n * n), gen)
-    rows.append(check_kernel(
-        f"stage (K1, key-switch QP W-CRT forward, {len(qp)} limbs, "
-        f"[{len(qp)}, {W}, {n * n}])", "stage",
-        "matrix_fhe_tpu_torch/csrc/stage.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
-        lambda: fwd_w.kernel(d), lambda: fwd_w.plain(d), [fwd_w.table, d],
-        stage_work(fwd_w, d)))
+    rows.append(check_stage(
+        f"key-switch QP W-CRT forward, {len(qp)} limbs, "
+        f"[{len(qp)}, {W}, {n * n}]", fwd_w, d))
     split_ms = cuda_ms(lambda: fwd_w.split_digits(d), 5)
     log(f"[kernel] {rows[-1]['name']}: its split pass (launch key "
         f"stage_split) alone {split_ms:.3f} ms of the row's "
@@ -1560,7 +1556,7 @@ def mid_keyswitch_path():
                              "from the CPU plain path")
     if not noise < 1 << 25:
         raise AssertionError(f"mid relinearization noise {noise} >= 2^25")
-    for key in ("stage", "stage_x", "stage_tw_x", "base_conv"):
+    for key in ("stage_w", "stage_x", "stage_tw_x", "base_conv"):
         if launches.get(key, 0) <= 0:
             raise AssertionError(f"mid multiply_relinearize launched no {key}")
     log("[check] mid multiply_relinearize (dnum 1, 6 x 28-bit P): card == "
@@ -1572,13 +1568,9 @@ def mid_keyswitch_path():
     fwd_w, fwd_x, inv_x = rc_g.wt_qp._fwd, rc_g.xntt_qp._fwd, rc_g.xntt_qp._inv
     g = torch.Generator(device="cuda").manual_seed(MID_SEED)
     d = random_residues(qp, (W, n * n), g)
-    rows = [check_kernel(
-        f"stage (K1, mid key-switch QP W-CRT forward, {len(qp)} limbs, "
-        f"[{len(qp)}, {W}, {n * n}])", "stage",
-        "matrix_fhe_tpu_torch/csrc/stage.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
-        lambda: fwd_w.kernel(d), lambda: fwd_w.plain(d), [fwd_w.table, d],
-        stage_work(fwd_w, d))]
+    rows = [check_stage(
+        f"mid key-switch QP W-CRT forward, {len(qp)} limbs, "
+        f"[{len(qp)}, {W}, {n * n}]", fwd_w, d)]
     d = random_residues(qp, (W * n, n), g)
     rows.append(check_stage(
         f"mid key-switch QP X-NTT inverse, {len(qp)} limbs, "
@@ -1784,14 +1776,9 @@ def parallel_rows(device, dp: int, tp: int) -> list:
     rc = RelinContext(HEContext(p, ring="nega", device=device))
     qp = ShardedWTransform(rc.wt_qp, lanes, "tp")._fwd
     d_w = random_residues(rc.qp_moduli, (W, n * n), gen)
-    rows.append(check_kernel(
-        f"stage (K1, key switch's QP W-CRT forward on lanes 0-"
-        f"{W // world - 1}, table {list(qp.table.shape)}, "
-        f"{list(d_w.shape)})", "stage",
-        "matrix_fhe_tpu_torch/csrc/stage.cu",
-        "matrix_fhe_tpu/ops/pallas_ntt.py:1633",
-        lambda: qp.kernel(d_w), lambda: qp.plain(d_w), [qp.table, d_w],
-        stage_work(qp, d_w)))
+    rows.append(check_stage(
+        f"key switch's QP W-CRT forward on lanes 0-{W // world - 1}, table "
+        f"{list(qp.table.shape)}, {list(d_w.shape)}", qp, d_w))
     del rc, qp, d_w
     torch.cuda.empty_cache()
 
@@ -1811,9 +1798,9 @@ def parallel_rows(device, dp: int, tp: int) -> list:
 
 # the kernels each sharded program must launch (its window's counts)
 PAR_NEEDS = {"ntt": ("stage", "stage_tw"),
-             "pipeline": ("stage", "ntt_mul_ntt", "inv_compose",
+             "pipeline": ("stage_w", "ntt_mul_ntt", "inv_compose",
                           "fp_cmatmul"),
-             "keyswitch": ("stage", "stage_x", "stage_tw_x", "base_conv")}
+             "keyswitch": ("stage_w", "stage_x", "stage_tw_x", "base_conv")}
 
 
 def parallel_rank(device, dp: int, tp: int, rows: bool) -> dict:
@@ -1959,26 +1946,28 @@ ENTRY_S = 600                   # one entry point's time limit
 # calls must launch -- each prints the launches of those calls alone, not
 # of its set-up, keys, encryptions, oracles, baselines, fences or rank 0's
 # unsharded references: the launch keys of K1 stage, K10a-tw stage_tw, the
-# X-NTT route's stage_x and stage_tw_x, K2 ntt_mul_ntt, K3 inv_compose, K4
-# fp_cmatmul, K5 four_step_fwd, K6 cgemm, K7 gemm2x2, the base conversion
-# base_conv, the Delta^2 decode's compose crt_compose)
+# X-NTT route's stage_x and stage_tw_x, the W-CRT route's stage_w (every
+# W-CRT at 512 lanes: the examples at ref and mid; the dryrun's tiny preset
+# has 8), K2 ntt_mul_ntt, K3 inv_compose, K4 fp_cmatmul, K5 four_step_fwd,
+# K6 cgemm, K7 gemm2x2, the base conversion base_conv, the Delta^2
+# decode's compose crt_compose)
 ENTRY_POINTS = (
     ("main", ["-m", "matrix_fhe_tpu_torch.examples.main"], r"SUCCESS \(",
-     ("stage", "ntt_mul_ntt", "inv_compose", "fp_cmatmul")),
+     ("stage_w", "ntt_mul_ntt", "inv_compose", "fp_cmatmul")),
     ("matmul", ["-m", "matrix_fhe_tpu_torch.examples.matmul"],
      r"\[matmul\] PASS$",
-     ("cgemm", "ntt_mul_ntt", "stage", "fp_cmatmul", "crt_compose")),
+     ("cgemm", "ntt_mul_ntt", "stage_w", "fp_cmatmul", "crt_compose")),
     ("matmul_gl2", ["-m", "matrix_fhe_tpu_torch.examples.matmul_gl2"],
      r"\[gl2-gemm\] OK$",
-     ("gemm2x2", "ntt_mul_ntt", "stage", "fp_cmatmul", "base_conv",
+     ("gemm2x2", "ntt_mul_ntt", "stage_w", "fp_cmatmul", "base_conv",
       "crt_compose")),
     ("relinearize", ["-m", "matrix_fhe_tpu_torch.examples.relinearize"],
-     r"\[relin\] PASS$", ("stage_tw_x", "stage_x", "stage", "base_conv")),
+     r"\[relin\] PASS$", ("stage_tw_x", "stage_x", "stage_w", "base_conv")),
     ("leveled", ["-m", "matrix_fhe_tpu_torch.examples.leveled"],
      r"\[leveled\] \|ct - oracle\| composed max = \d+ \(OK\)$",
-     ("stage_tw_x", "stage_x", "stage", "ntt_mul_ntt", "base_conv")),
+     ("stage_tw_x", "stage_x", "stage_w", "ntt_mul_ntt", "base_conv")),
     ("bench", ["-m", "matrix_fhe_tpu_torch.scripts.bench"], r'^\{"metric": ',
-     ("four_step_fwd", "stage", "ntt_mul_ntt", "inv_compose", "fp_cmatmul")),
+     ("four_step_fwd", "stage_w", "ntt_mul_ntt", "inv_compose", "fp_cmatmul")),
     ("dryrun_multichip(4)", ["-m", "matrix_fhe_tpu_torch.entry", "--dryrun",
                              "4"], r"\[dryrun\] OK$",
      ("stage", "stage_x", "stage_tw_x", "ntt_mul_ntt", "inv_compose",
@@ -2359,6 +2348,7 @@ def gl2_conj_path(ctx, hm, rc, sk, X, gen):
                                  for _ in range(3))
     log(f"[conj] keygen {keygen_ms:.3f} ms, apply {apply_ms:.3f} ms (median "
         f"of 3 after the first call, CUDA events); K1 {apply_launches.get('stage', 0)}, "
+        f"stage_w {apply_launches.get('stage_w', 0)}, "
         f"stage_x {apply_launches.get('stage_x', 0)}, stage_tw_x "
         f"{apply_launches.get('stage_tw_x', 0)}, K2 "
         f"{apply_launches.get('ntt_mul_ntt', 0)} launches in one apply")
@@ -2452,6 +2442,7 @@ def main() -> int:
     igmma = {name: tensor_core_ops(funcs, kernel) for name, kernel in (
         ("K1 stage_kernel (u8)", "12stage_kernel"),
         ("K1 / K10a xntt_stage_kernel (u8)", "17xntt_stage_kernel"),
+        ("K1 wcrt_stage_kernel (u8)", "17wcrt_stage_kernel"),
         ("K2 ntt_mul_ntt_kernel (u8)", "ntt_mul_ntt_kernel"),
         ("K4 fp_cmatmul_kernel (s8)", "fp_cmatmul_kernel"),
         ("K6 cgemm_kernel (u8)", "cgemm_kernel"),
@@ -2464,14 +2455,16 @@ def main() -> int:
         f"32-bit words; IGMMA (wgmma) instructions: "
         + ", ".join(f"{k} {v}" for k, v in igmma.items())
         + " (cuobjdump -sass)")
-    # the X-NTT kernel's warpgroups share the block's 168 registers a thread
-    # through setmaxnreg: a stack frame or local memory would be a spill
-    xntt_res = resource_usage("17xntt_stage_kernel")
-    log(f"[sass] xntt_stage_kernel: {xntt_res.get('REG')} registers at "
-        f"entry, stack {xntt_res.get('STACK')} B, local "
-        f"{xntt_res.get('LOCAL')} B (cuobjdump -res-usage)")
-    if xntt_res.get("STACK", 0) or xntt_res.get("LOCAL", 0):
-        raise AssertionError(f"xntt_stage_kernel spills: {xntt_res}")
+    # the X-NTT and W-CRT kernels' warpgroups share the block's 168
+    # registers a thread through setmaxnreg: a stack frame or local memory
+    # would be a spill
+    for kernel in ("xntt_stage_kernel", "wcrt_stage_kernel"):
+        res = resource_usage("17" + kernel)
+        log(f"[sass] {kernel}: {res.get('REG')} registers at entry, stack "
+            f"{res.get('STACK')} B, local {res.get('LOCAL')} B (cuobjdump "
+            "-res-usage)")
+        if res.get("STACK", 0) or res.get("LOCAL", 0):
+            raise AssertionError(f"{kernel} spills: {res}")
     t_path = time.perf_counter()
 
     p = get_params("ref")
@@ -2524,7 +2517,7 @@ def main() -> int:
             raise AssertionError(f"{row['name']} was not launched on the path")
     # K3 is a split, K1's GEMM and a compose under keys of its own, K4 a
     # split and its GEMM
-    for parts in (("inv_compose", "inv_compose_stage", "inv_compose_split"),
+    for parts in (("inv_compose", "inv_compose_stage_w", "inv_compose_split"),
                   ("fp_cmatmul", "fp_cmatmul_split")):
         if len({launches.get(k, 0) for k in parts}) != 1:
             raise AssertionError(f"launches of {parts} differ: {launches}")
@@ -2684,6 +2677,7 @@ def main() -> int:
                ("5_keyswitch", ks_launches), ("7_parallel", par_launches),
                ("8_entry_points", ep_launches), ("8_four_step", fs_launches))
     for key, prefix in (("ntt_mul_ntt", "ntt_mul_ntt"), ("stage", "stage (K1"),
+                        ("stage_w", "stage_w (K1"),
                         ("stage_tw", "stage_tw (K10a"),
                         ("stage_x", "stage_x (K1"),
                         ("stage_tw_x", "stage_tw_x (K10a"),

@@ -28,8 +28,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("stage.cu", "xntt_stage.cu", "ntt_mul_ntt.cu", "inv_compose.cu",
-           "fp_cmatmul.cu", "four_step_ntt.cu", "cgemm.cu", "gemm2x2.cu",
+SOURCES = ("stage.cu", "xntt_stage.cu", "wcrt_stage.cu", "ntt_mul_ntt.cu",
+           "inv_compose.cu", "fp_cmatmul.cu", "four_step_ntt.cu", "cgemm.cu", "gemm2x2.cu",
            "micro_vpu.cu", "micro_coissue.cu", "base_conv.cu",
            "crt_compose.cu", "gl2_key_products.cu")
 HEADERS = ("modarith.cuh", "wgmma8.cuh")
@@ -50,6 +50,7 @@ _SIGNATURES = {
                  _I, _I, _P],
     "mf_stage_split": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mf_stage_x": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mf_stage_w": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mf_ntt_mul_ntt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P],
     "mf_inv_compose": [_P, _P, _P, _P, _P, _I, _LL, _P],

@@ -11,7 +11,9 @@ the table (``slice_tables``, built on the device at a Stage's first CUDA
 call), K3's compose in a pass of its own; K2 runs two such GEMMs in one
 launch with the spectrum in shared memory.  Side 'right' at a contraction
 of at most XNTT_MAX_K terms (the X-NTT) has a kernel of its own
-(``takes_xntt``), built for a short, byte-bound contraction.
+(``takes_xntt``), built for a short, byte-bound contraction, and so has
+side 'left' at WCRT_MIN_K to WCRT_MAX_K terms (the W-CRT over 512 lanes,
+``takes_wcrt``), built for a long, product-bound one.
 The TPU's limb runs and u32 lo/hi planes do not exist here.
 """
 
@@ -31,6 +33,8 @@ from .modmatmul import modmatmul
 I64 = torch.int64
 SMEM_LIMIT = 232448     # shared memory one block may hold on Hopper (227 KB)
 XNTT_MAX_K = 128        # side 'right' contractions csrc/xntt_stage.cu takes
+WCRT_MIN_K = 256        # side 'left' contractions csrc/wcrt_stage.cu takes,
+WCRT_MAX_K = 4096       # whose s32 sums stay exact without a flush
 
 
 def _as_i64(table_u64: np.ndarray, device) -> torch.Tensor:
@@ -109,6 +113,15 @@ def takes_xntt(side: str, k: int) -> bool:
     return side == "right" and k <= XNTT_MAX_K
 
 
+def takes_wcrt(side: str, k: int) -> bool:
+    """The other route rule of Stage.kernel: side 'left' with a contraction
+    of WCRT_MIN_K to WCRT_MAX_K terms (the W-CRT over the 512 lanes, K3's
+    GEMM on the scaled tables) runs csrc/wcrt_stage.cu, whose s32 sums stay
+    exact without a flush up to WCRT_MAX_K terms at 7 digits; shorter and
+    longer left contractions run csrc/stage.cu."""
+    return side == "left" and WCRT_MIN_K <= k <= WCRT_MAX_K
+
+
 class Stage:
     """K1 and K10a: one exact modular matmul stage per limb, canonical
     output, optionally times a per-output twiddle.
@@ -134,10 +147,13 @@ class Stage:
     transposed digit planes (launch key "stage_split").  Side 'right' at a
     contraction of at most XNTT_MAX_K terms runs the same arithmetic in
     csrc/xntt_stage.cu, a kernel for short contractions (launch keys
-    "stage_x", "stage_tw_x"; `takes_xntt`); `general` runs csrc/stage.cu on
-    any call, its yardstick.  `keys` renames the launch keys of the plain
-    GEMM and the split pass, for a Stage inside another kernel's function
-    (K3).
+    "stage_x", "stage_tw_x"; `takes_xntt`), and side 'left' at WCRT_MIN_K
+    to WCRT_MAX_K terms in csrc/wcrt_stage.cu, a kernel for long
+    contractions (launch key keys[0] + "_w": "stage_w", K3's
+    "inv_compose_stage_w"; `takes_wcrt`); `general` runs csrc/stage.cu on
+    any call, the yardstick of both routes.  `keys` renames the launch keys
+    of the plain GEMM and the split pass, for a Stage inside another
+    kernel's function (K3).
     """
 
     def __init__(self, tables_u64: np.ndarray, moduli: Sequence[int],
@@ -157,6 +173,10 @@ class Stage:
         self.q = moduli_col(self.moduli, 2, device)
         self.r_inv = moduli_col(
             [pow(1 << 64, -1, q) for q in self.moduli], 2, device)
+        # bit d set for each digit count d of the limbs (the W-CRT kernel
+        # sizes its ring stages by them)
+        self._digit_mask = sum(1 << d for d in set(map(digit_count,
+                                                       self.moduli)))
         self._layout = self._planes = None   # at the first CUDA call
 
     def __call__(self, data: torch.Tensor,
@@ -202,9 +222,21 @@ class Stage:
     def launch_key(self, twiddle: bool) -> str:
         """The launch key a kernel call of this Stage counts under, with or
         without a twiddle."""
-        if takes_xntt(self.side, self.table.shape[2]):
+        route = self.route()
+        if route == "x":
             return "stage_tw_x" if twiddle else "stage_x"
+        if route == "w":
+            return self.keys[0] + "_w"
         return self._general_key(twiddle)
+
+    def route(self) -> str:
+        """The kernel a call takes, from the table's side and contraction:
+        "x" (csrc/xntt_stage.cu), "w" (csrc/wcrt_stage.cu) or "general"
+        (csrc/stage.cu)."""
+        k = self.table.shape[2]
+        if takes_xntt(self.side, k):
+            return "x"
+        return "w" if takes_wcrt(self.side, k) else "general"
 
     def _general_key(self, twiddle: bool) -> str:
         if not twiddle:
@@ -213,17 +245,16 @@ class Stage:
 
     def kernel(self, data: torch.Tensor,
                twiddle_mont: torch.Tensor | None = None) -> torch.Tensor:
-        return self._launch(data, twiddle_mont,
-                            takes_xntt(self.side, self.table.shape[2]))
+        return self._launch(data, twiddle_mont, self.route())
 
     def general(self, data: torch.Tensor,
                 twiddle_mont: torch.Tensor | None = None) -> torch.Tensor:
-        """csrc/stage.cu on any call, the X-NTT kernel's short contractions
-        included (launch keys as the left sides' and the long ones'): the
-        yardstick of the X-NTT route in the tests and chip_smoke.py."""
-        return self._launch(data, twiddle_mont, False)
+        """csrc/stage.cu on any call, the X-NTT and W-CRT kernels' calls
+        included (launch keys as the other sides' and contractions'): the
+        yardstick of both routes in the tests and chip_smoke.py."""
+        return self._launch(data, twiddle_mont, "general")
 
-    def _launch(self, data: torch.Tensor, twiddle_mont, xntt: bool
+    def _launch(self, data: torch.Tensor, twiddle_mont, route: str
                 ) -> torch.Tensor:
         L, W, K = self.table.shape
         batch = 1
@@ -249,8 +280,8 @@ class Stage:
             be.check(tw, "twiddle_mont", I64, tuple(tw.shape))
             if tw.data_ptr() % 16:      # read as 16-byte pairs
                 tw = tw.clone()
-        key = self.launch_key(tw is not None) if xntt \
-            else self._general_key(tw is not None)
+        key = self._general_key(tw is not None) if route == "general" \
+            else self.launch_key(tw is not None)
         kp, kbs = self._device_layout()
         left = self.side != "right"
         if left:    # the data's digit planes, transposed to K-major rows
@@ -263,9 +294,12 @@ class Stage:
                 data = data.clone()
             xs, s_z, s_row = data, rows * 8 * kp, 8 * kp
         dmax = self._planes.shape[2]
-        if xntt:
+        if route == "x":
             be.launch(key, "mf_stage_x", data.device, xs, self._planes, out,
                       self.consts, tw, L, rows, W, kp, tw_rows, kbs, dmax)
+        elif route == "w":
+            be.launch(key, "mf_stage_w", data.device, xs, self._planes, out,
+                      self.consts, L, rows, W, kp, kbs, dmax, self._digit_mask)
         else:
             be.launch(key, "mf_stage", data.device, xs, self._planes, out,
                       self.consts, tw, L, batch, rows, W, kp, int(left),
@@ -384,7 +418,8 @@ class InvCompose:
 
     On the card r' = T' @ x mod q is K1's digit-plane GEMM on a Stage of
     the scaled tables (launch keys "inv_compose_split" and
-    "inv_compose_stage", so that K1's own counts stay K1's), and a compose
+    "inv_compose_stage", or "inv_compose_stage_w" on the W-CRT route, so
+    that K1's own counts stay K1's), and a compose
     pass (csrc/inv_compose.cu, key "inv_compose") folds its L planes into
     acc and k; r' and the split planes are scratch, freed on return."""
 

@@ -68,7 +68,8 @@ class WTransform:
     def inverse_scaled(self, x: torch.Tensor) -> torch.Tensor:
         """inverse() with outputs pre-multiplied by M_l^-1 mod q_l: K1 on
         K3's scaled tables, InvCompose's own Stage, so its launches count
-        under K3's keys (inv_compose_stage, inv_compose_split)."""
+        under K3's keys (inv_compose_stage or, at 256 lanes and more,
+        inv_compose_stage_w; inv_compose_split)."""
         L, W = x.shape[0], x.shape[1]
         return self._inv_compose._stage(x.reshape(L, W, -1).contiguous()
                                         ).reshape(x.shape)

@@ -36,10 +36,11 @@ from matrix_fhe_tpu_torch.ops import ddfloat as tdd
 from matrix_fhe_tpu_torch.ops import fpmatmul as tfp
 from matrix_fhe_tpu_torch.ops import modmath as tmm
 from matrix_fhe_tpu_torch.ops import probes
-from matrix_fhe_tpu_torch.ops.cuda_ntt import (XNTT_MAX_K, InvCompose,
+from matrix_fhe_tpu_torch.ops.cuda_ntt import (WCRT_MAX_K, WCRT_MIN_K,
+                                               XNTT_MAX_K, InvCompose,
                                                NttMulNtt, Stage, digit_count,
                                                plane_layout, slice_tables,
-                                               takes_xntt)
+                                               takes_wcrt, takes_xntt)
 from matrix_fhe_tpu_torch.ops.wcrt import scaled_inverse_tables
 
 P = get_params("tiny")
@@ -326,6 +327,115 @@ def test_xntt_route_rule(side, k, xntt):
     k3 = Stage(np.zeros((1, 8, k), dtype=np.uint64), MIXED[:1], side, "cpu",
                keys=("inv_compose_stage", "inv_compose_split"))
     assert k3.launch_key(False) == ("stage_x" if xntt else "inv_compose_stage")
+
+
+# -- K1's W-CRT route: csrc/wcrt_stage.cu ---------------------------------------
+
+@pytest.mark.parametrize("side,k,key", [
+    ("left", 512, "stage_w"), ("left", WCRT_MIN_K, "stage_w"),
+    ("left", WCRT_MAX_K, "stage_w"), ("left", WCRT_MIN_K - 1, "stage"),
+    ("left", WCRT_MAX_K + 1, "stage"), ("left", 64, "stage"),
+    ("right", 64, "stage_x"), ("right", XNTT_MAX_K, "stage_x"),
+    ("right", 256, "stage"), ("right", 512, "stage"),
+    ("batched_left", 256, "stage"), ("batched_left", 512, "stage")])
+def test_wcrt_route_rule(side, k, key):
+    """Stage.kernel's routes, read from the table's side and contraction
+    alone: side 'left' at WCRT_MIN_K to WCRT_MAX_K terms (every W-CRT over
+    the 512 lanes, K3's scaled tables) launches csrc/wcrt_stage.cu under
+    keys[0] + "_w" (stage_w; K3's Stage inv_compose_stage_w); side 'right'
+    at most XNTT_MAX_K terms csrc/xntt_stage.cu (stage_x); the rest
+    csrc/stage.cu under the general keys."""
+    assert takes_wcrt(side, k) is (key == "stage_w")
+    st = Stage(np.zeros((1, 8, k), dtype=np.uint64), MIXED[:1], side, "cpu")
+    assert st.launch_key(False) == key
+    k3 = Stage(np.zeros((1, 8, k), dtype=np.uint64), MIXED[:1], side, "cpu",
+               keys=("inv_compose_stage", "inv_compose_split"))
+    assert k3.launch_key(False) == {"stage_w": "inv_compose_stage_w",
+                                    "stage": "inv_compose_stage"}.get(key, key)
+
+
+CSRC = os.path.join(ROOT, "matrix_fhe_tpu_torch", "csrc")
+
+
+@pytest.mark.parametrize("source", ["stage.cu", "xntt_stage.cu",
+                                    "wcrt_stage.cu"])
+def test_stage_kernel_names_count_in_the_roofline(source):
+    """Every CUDA function of K1's routes that computes stage outputs is
+    named so that fhebench's stage_roofline_pct counts its device time
+    (events whose name holds stage_kernel or stage_split_kernel)."""
+    import re
+    with open(os.path.join(CSRC, source)) as f:
+        text = f.read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                       r"(\w+)\s*\(", text)
+    assert names
+    assert all("stage_kernel" in n or "stage_split_kernel" in n
+               for n in names), names
+    if source == "wcrt_stage.cu":
+        assert names == ["wcrt_stage_kernel"]
+
+
+# csrc/wcrt_stage.cu's constants: table rows a block, K-tile bytes, the
+# shared memory a block may hold, its alignment and barriers
+W_BW, W_BK, W_SMEM, W_ALIGN, W_BARRIERS = 32, 128, 232448, 1024, 128
+
+
+def _wcrt_tile_rows(d: int) -> int:
+    """Data rows of a block's tile: two m64 tiles a consumer warpgroup
+    below 7 digits, one at 7."""
+    return 256 if d <= 6 else 128
+
+
+def _wcrt_stages(moduli) -> int:
+    """mf_stage_w's ring: stages of the launch's largest tile (its data
+    rows and its d table planes of 32 rows, 128 bytes each), at most 8."""
+    need = max((_wcrt_tile_rows(d) + W_BW * d) * W_BK
+               for d in set(map(digit_count, moduli)))
+    return min(8, (W_SMEM - W_ALIGN - W_BARRIERS) // need)
+
+
+def _wcrt_walk(moduli, m: int, w: int, blocks: int) -> np.ndarray:
+    """csrc/wcrt_stage.cu's walk, transcribed: block b takes the units b,
+    b + blocks, ... of the flattened (limb, row tile, table tile) order,
+    each consumer warpgroup half of the tile's data rows.  Returns how
+    often each output [L, W, M] is stored."""
+    nj = -(-w // W_BW)
+    seen = np.zeros((len(moduli), w, m), dtype=np.int8)
+    for b in range(blocks):
+        limb, base = 0, 0
+        rows = _wcrt_tile_rows(digit_count(moduli[0]))
+        count = -(-m // rows) * nj
+        u = b
+        while True:
+            while u >= base + count and limb < len(moduli):
+                base += count
+                limb += 1
+                if limb < len(moduli):
+                    rows = _wcrt_tile_rows(digit_count(moduli[limb]))
+                    count = -(-m // rows) * nj
+            if limb == len(moduli):
+                break
+            v = u - base
+            row0, w0 = (v // nj) * rows, (v % nj) * W_BW
+            for cw in range(2):
+                r0 = row0 + cw * rows // 2
+                seen[limb, w0:w0 + W_BW, r0:r0 + rows // 2] += 1
+            u += blocks
+    return seen
+
+
+@pytest.mark.parametrize("moduli,m,w,blocks", [
+    ("ref14", 4096, 512, 132), ("mixed", 333, 40, 3), ("p55", 513, 72, 5),
+    ("p28", 1000, 96, 1), ("ref11", 200, 40, 7), ("lev13", 1003, 512, 64)])
+def test_wcrt_walk_stores_every_output_once(moduli, m, w, blocks):
+    """The W-CRT kernel's persistent walk stores each output of every limb
+    exactly once, at any block count, ragged M and W (a tile's rows and
+    columns past them are computed and never stored) and limbs of 128- and
+    256-row tiles mixed; the ring holds four stages at every digit mix of
+    the cells."""
+    mods = _xntt_moduli(moduli)
+    assert (_wcrt_walk(mods, m, w, blocks) == 1).all()
+    assert _wcrt_stages(mods) >= 4
 
 
 def _fold_short(diags) -> tuple:
@@ -1177,22 +1287,23 @@ def _launched(name, fn):
 
 def _launched_stage(key, st, fn):
     """K1 launched once under `key`, and its split pass once on the left
-    sides."""
-    split = _backend.LAUNCHES["stage_split"]
+    sides (under the Stage's split key)."""
+    split = _backend.LAUNCHES[st.keys[1]]
     out = _launched(key, fn)
-    assert _backend.LAUNCHES["stage_split"] == split + (st.side != "right")
+    assert _backend.LAUNCHES[st.keys[1]] == split + (st.side != "right")
     return out
 
 
 def _stage_checks(st, x, tw=None):
     """Stage.kernel on the card launched once under its route's key, equal
-    to Stage.plain bit for bit; on the X-NTT route also to the general
-    kernel (Stage.general), its yardstick."""
+    to Stage.plain bit for bit; on the X-NTT and W-CRT routes also to the
+    general kernel (Stage.general), their yardstick."""
     got = _launched_stage(st.launch_key(tw is not None), st,
                           lambda: st.kernel(x, tw))
     want = st.plain(x, tw)
     assert torch.equal(got.cpu(), want.cpu())
-    if takes_xntt(st.side, st.table.shape[2]):
+    k = st.table.shape[2]
+    if takes_xntt(st.side, k) or takes_wcrt(st.side, k):
         assert torch.equal(st.general(x, tw).cpu(), want.cpu())
 
 
@@ -1215,11 +1326,12 @@ XNTT_SHAPES = {"cell4": ("mid4", 64, 32768, "random"),
 
 def _xntt_moduli(name):
     ref = get_params("ref")
-    return {"mid4": ref.moduli[:4],
-            "mid10": ref.moduli[:4] + generate_ntt_primes(6, 28, 64, 771),
-            "ref11": ref.moduli, "lev13": ref.moduli[:10] + REF_P_MODULI,
+    p28 = generate_ntt_primes(6, 28, 64, 771)
+    return {"mid4": ref.moduli[:4], "mid10": ref.moduli[:4] + p28,
+            "ref11": ref.moduli, "ref10": ref.moduli[:10],
+            "lev13": ref.moduli[:10] + REF_P_MODULI,
             "ref14": ref.moduli + REF_P_MODULI, "q35": ref.moduli[1:6],
-            "mixed": MIXED}[name]
+            "p28": p28, "p55": REF_P_MODULI[:1] * 3, "mixed": MIXED}[name]
 
 
 def _xntt_case(cuda, shape, twiddle):
@@ -1241,15 +1353,54 @@ def _xntt_case(cuda, shape, twiddle):
     return st, draw(rows), (tw() if tw else None)
 
 
+# the W-CRT route (csrc/wcrt_stage.cu) at the cells' shapes, [L, 512, M]
+# tables [L, 512, 512]: the key switch's QP W-CRT on ref's 14 QP, ref's 11
+# Q, the leveled chain's 13 level-1 QP and mid's 10 QP limbs; gl2's QP
+# W-CRT (M = 16384) and its rescale's [11 | 10, 512, 8192]; a ragged M
+# (4096 + 77) with every entry q - 1 on the 14 QP limbs; 28-bit limbs alone
+# (4 digits) and the 55-bit P prime alone (7 digits, 128-row tiles) at a
+# ragged M and an odd count of 32-row table tiles (W = 96, 72)
+WCRT_SHAPES = {"cell14": ("ref14", 512, 4096, "random"),
+               "cell11": ("ref11", 512, 4096, "random"),
+               "cell13": ("lev13", 512, 4096, "random"),
+               "cell10": ("mid10", 512, 4096, "random"),
+               "gl2": ("ref14", 512, 16384, "random"),
+               "rescale11": ("ref11", 512, 8192, "random"),
+               "rescale10": ("ref10", 512, 8192, "random"),
+               "ragged": ("ref14", 512, 4173, "max"),
+               "d4": ("p28", 96, 1000, "random"),
+               "d7": ("p55", 72, 513, "max")}
+
+
+def _wcrt_case(cuda, shape):
+    """(Stage, data) of a WCRT_SHAPES case on the card."""
+    name, w, m, fill = WCRT_SHAPES[shape]
+    moduli = _xntt_moduli(name)
+    q = torch.tensor(moduli, dtype=torch.int64, device=cuda).reshape(-1, 1, 1)
+    gen = torch.Generator(device=cuda).manual_seed(m + w)
+
+    def draw(r, c):
+        if fill == "max":
+            return (q - 1).expand(-1, r, c).contiguous()
+        return torch.randint(0, 1 << 62, (len(moduli), r, c), generator=gen,
+                             device=cuda) % q
+
+    st = Stage(draw(w, 512).cpu().numpy().view(np.uint64), moduli, "left",
+               cuda)
+    return st, draw(512, m)
+
+
 # sides x K x fill on the mixed 35/40/45/55-bit limbs, 40 table rows and 200
-# data rows (neither a multiple of the block's 32 x 128); then contractions
-# past the s32 bound on the 55-bit prime
+# data rows (neither a multiple of the block's 32 x 128; side 'left' at K >=
+# 256 takes the W-CRT route); then contractions past the s32 bound on the
+# 55-bit prime
 STAGE_CASES = (["tiny", "small"]
                + [f"{side}-K{k}-{fill}"
                   for side in ("left", "right", "batched_left")
                   for k in (64, 128, 256, 512) for fill in ("random", "max")]
                + ["left-K4800-flush", "right-K4800-flush"]
-               + [f"xntt-{shape}" for shape in XNTT_SHAPES])
+               + [f"xntt-{shape}" for shape in XNTT_SHAPES]
+               + [f"wcrt-{shape}" for shape in WCRT_SHAPES])
 
 
 @pytest.mark.cuda
@@ -1272,6 +1423,11 @@ def test_cuda_stage_matches_plain(cuda, case):
     if case.startswith("xntt-"):
         st, x, _ = _xntt_case(cuda, case[5:], "none")
         assert st.launch_key(False) == "stage_x"
+        _stage_checks(st, x)
+        return
+    if case.startswith("wcrt-"):
+        st, x = _wcrt_case(cuda, case[5:])
+        assert st.launch_key(False) == "stage_w"
         _stage_checks(st, x)
         return
     side, k, fill = case.split("-")
@@ -1403,7 +1559,10 @@ def test_cuda_inv_compose_own_keys_ragged(cuda, preset):
     xs = [i64(residues(rng, p.moduli, (p.phi, 2 * p.n * p.n + 3)))]
     if preset != "ref":
         xs.append(_near_half_inputs(p, t, seed=64)[0])
-    keys = ("inv_compose", "inv_compose_stage", "inv_compose_split", "stage",
+    gemm = k3._stage.launch_key(False)   # inv_compose_stage_w at ref's 512
+    assert gemm == ("inv_compose_stage_w" if p.phi >= WCRT_MIN_K
+                    else "inv_compose_stage")
+    keys = ("inv_compose", gemm, "inv_compose_split", "stage", "stage_w",
             "stage_split")
     for x in xs:
         x = x.to(cuda)
@@ -1411,11 +1570,13 @@ def test_cuda_inv_compose_own_keys_ragged(cuda, preset):
         got = k3(x)
         torch.cuda.synchronize()
         assert {k: _backend.LAUNCHES[k] - before[k] for k in keys} == {
-            "inv_compose": 1, "inv_compose_stage": 1, "inv_compose_split": 1,
-            "stage": 0, "stage_split": 0}
+            "inv_compose": 1, gemm: 1, "inv_compose_split": 1,
+            "stage": 0, "stage_w": 0, "stage_split": 0}
         want = k3.plain(x)
         assert torch.equal(got[0].cpu(), want[0].cpu())
         assert torch.equal(got[1].cpu(), want[1].cpu())
+        # the scaled tables' GEMM on its route == the general kernel
+        assert torch.equal(k3._stage.kernel(x), k3._stage.general(x))
 
 
 @pytest.mark.cuda
